@@ -1,0 +1,76 @@
+"""What keeps the port a port: it never imports JAX or the JAX package, its
+entry points run on the card or raise, and ``chip_smoke.py`` drives the
+stage that ``configs/stage1_3d.yaml`` describes."""
+
+import ast
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vggt_qwen3_tpu")
+
+
+def _port_files():
+    return sorted((REPO / "vggt_qwen3_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
+    from vggt_qwen3_tpu_torch.inference import qa
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stage = qa.build_stage(_tiny_args())
+    params = qa.load_model(stage, device="cpu")
+    sample = {"question": "what?", "images": [torch.zeros(8, 8, 3, dtype=torch.uint8).numpy()]}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        qa.run_inference(params, stage, load_tokenizer(None), [sample], max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        qa.load_model(stage)
+
+
+def _tiny_args():
+    import argparse
+
+    return argparse.Namespace(config=str(REPO / "configs/stage1_3d.yaml"), tiny=True, mock_vision=True,
+                              checkpoint_dir=None)
+
+
+def test_chip_smoke_stage_is_stage1_3d():
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from vggt_qwen3_tpu_torch.config import load_stage_config
+
+    built = chip_smoke.full_stage()
+    loaded = load_stage_config(REPO / "configs/stage1_3d.yaml")
+    # the QA path reads the model and data blocks; geom is not on it
+    assert dataclasses.replace(built.model, geom_tokens=0) == dataclasses.replace(loaded.model, geom_tokens=0)
+    assert built.data == loaded.data
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"), (tmp_path, alone)):
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True, text=True,
+                              timeout=120, env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

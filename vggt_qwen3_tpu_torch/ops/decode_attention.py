@@ -1,0 +1,136 @@
+"""GQA decode attention over the stacked head-major KV cache: the CUDA
+kernel's wrapper and its plain version.
+
+Counterpart of ``vggt_qwen3_tpu/ops/decode_attention.py`` (the Pallas
+``_decode_kernel`` via ``gqa_decode_attention``). One query token per row
+attends to the slots ``[kv_start, kv_end)`` of layer ``li`` of the whole
+stacked cache ``[L, B, NKV, T, D]``. ``cache[li]`` is a view in PyTorch, and
+the kernel reads the layer by pointer offset, so no per-layer copy is made.
+
+Numerics (kernel and plain version alike):
+- bf16 cache: f32 QK, scores × D^-0.5, f32 softmax, f32 PV;
+- int8 cache (bf16 per-(token, head) scales ``ks``/``vs`` [L, B, NKV, T]):
+  scores × (ks · D^-0.5), the row sum ``l`` taken before ``p`` is multiplied
+  by ``vs``, f32 PV over the int8 values;
+- output divided by ``max(l, 1e-20)``.
+
+The speculative block-verify variant (``gqa_block_verify_attention``) waits
+for the serving slice (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import kernel_build
+
+# Incremented once per kernel launch (never for the plain version).
+launches = 0
+
+MAX_GROUP = 8  # query heads per kv head the kernel supports
+
+
+def gqa_decode_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: int,
+    kv_start: torch.Tensor, kv_end: torch.Tensor,
+    ks: Optional[torch.Tensor] = None, vs: Optional[torch.Tensor] = None,
+    *, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """q [B, NH, D]; k, v [L, B, NKV, T, D]; → [B, NH, D] in q.dtype."""
+    B, NH, D = q.shape
+    NKV, T = k.shape[2], k.shape[3]
+    G = NH // NKV
+    if scale is None:
+        scale = D ** -0.5
+    start = kv_start.long().clamp(0, T)
+    end = kv_end.long().clamp(0, T)
+    s = torch.einsum("bkgd,bktd->bkgt", q.reshape(B, NKV, G, D).float(), k[li].float())
+    if ks is not None:
+        s = s * (ks[li].float()[:, :, None, :] * scale)
+    else:
+        s = s * scale
+    pos = torch.arange(T, device=q.device)
+    valid = (pos[None, :] >= start[:, None]) & (pos[None, :] < end[:, None])
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    if vs is not None:
+        p = p * vs[li].float()[:, :, None, :]
+    pv = torch.einsum("bkgt,bktd->bkgd", p, v[li].float())
+    return (pv / l.clamp_min(1e-20)).reshape(B, NH, D).to(q.dtype)
+
+
+def _lib():
+    fn = kernel_build.load("decode_attention").lib.decode_attention
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 8 + [I] * 6 + [ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gqa_decode_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: int,
+    kv_start: torch.Tensor, kv_end: torch.Tensor,
+    ks: Optional[torch.Tensor] = None, vs: Optional[torch.Tensor] = None,
+    *, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token GQA decode attention over the stacked cache.
+
+    CPU tensors take :func:`gqa_decode_attention_plain`; CUDA tensors launch
+    the ``csrc/decode_attention.cu`` kernel or raise. The kernel takes bf16
+    ``q``, a contiguous bf16 or int8 cache (int8 with bf16 ``ks``/``vs``),
+    D ∈ {64, 128} and at most 8 query heads per kv head.
+    """
+    global launches
+    if q.device.type == "cpu":
+        return gqa_decode_attention_plain(q, k, v, li, kv_start, kv_end, ks, vs, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"gqa_decode_attention: unsupported device {q.device}")
+    B, NH, D = q.shape
+    L, Bk, NKV, T, Dk = k.shape
+    quant = k.dtype == torch.int8
+    if tuple(v.shape) != tuple(k.shape) or Bk != B or Dk != D or NH % NKV:
+        raise ValueError(f"gqa_decode_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if D not in (64, 128) or NH // NKV > MAX_GROUP:
+        raise ValueError(f"gqa_decode_attention kernel takes D in (64, 128) and group <= {MAX_GROUP}")
+    if not 0 <= int(li) < L:
+        raise ValueError(f"gqa_decode_attention: layer {li} outside [0, {L})")
+    if q.dtype != torch.bfloat16 or k.dtype not in (torch.bfloat16, torch.int8) or v.dtype != k.dtype:
+        raise ValueError(f"gqa_decode_attention kernel takes bf16 q and a bf16 or int8 cache, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if quant != (ks is not None) or quant != (vs is not None):
+        raise ValueError("gqa_decode_attention: ks/vs go with an int8 cache and only with it")
+    tensors = [q, k, v] + ([ks, vs] if quant else [])
+    for x in tensors:
+        if x.device != q.device or not x.is_contiguous():
+            raise ValueError("gqa_decode_attention: operands must be contiguous and on one device")
+    if quant:
+        if tuple(ks.shape) != (L, B, NKV, T) or tuple(vs.shape) != (L, B, NKV, T) \
+                or ks.dtype != torch.bfloat16 or vs.dtype != torch.bfloat16:
+            raise ValueError("gqa_decode_attention: ks/vs must be bf16 [L, B, NKV, T]")
+    if scale is None:
+        scale = D ** -0.5
+    start = kv_start.to(device=q.device, dtype=torch.int32).contiguous()
+    end = kv_end.to(device=q.device, dtype=torch.int32).contiguous()
+    if start.shape != (B,) or end.shape != (B,):
+        raise ValueError("gqa_decode_attention: kv bounds must have shape (B,)")
+
+    def layer_ptr(x):  # base address of layer li
+        return x.data_ptr() + int(li) * x.stride(0) * x.element_size()
+
+    out = torch.empty((B, NH, D), dtype=torch.bfloat16, device=q.device)
+    rc = _lib()(
+        q.data_ptr(), layer_ptr(k), layer_ptr(v),
+        layer_ptr(ks) if quant else None, layer_ptr(vs) if quant else None,
+        out.data_ptr(), start.data_ptr(), end.data_ptr(),
+        B, NH, NKV, T, D, int(quant), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernel_build.check(rc, "decode_attention")
+    launches += 1
+    return out
