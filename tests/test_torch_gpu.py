@@ -9,13 +9,16 @@ suite.) Whether a card is present is decided inside each test body, so every
 pytest worker collects the same tests; without a card they skip.
 Tolerance: ``utils.agreement`` with tol 2e-2, scaled to the reference (every
 element within 2e-2·max|ref| + 2e-2·|ref|, ‖err‖₂ ≤ 5e-3·‖ref‖₂); rows with
-no valid key exactly 0.
+no valid key exactly 0. The W8 head: the same token on rows whose top-2 gap
+exceeds 1e-4·max|logit| (f32 sums in another order move a logit by far
+less), at least 99 % of the rows at M = 368; the max logit at rtol 1e-5.
 """
 
 import pytest
 import torch
 
 from vggt_qwen3_tpu_torch.ops import decode_attention as pdecode
+from vggt_qwen3_tpu_torch.ops import decode_matmul as pdm
 from vggt_qwen3_tpu_torch.ops import flash_attention as pflash
 from vggt_qwen3_tpu_torch.utils.agreement import agreement
 
@@ -96,3 +99,123 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take():
         pflash.flash_attention(x, x, x)
     with pytest.raises(ValueError):
         pflash.flash_attention(x.float(), x.float(), x.float())
+
+
+# ---------------------------------------------------------------------------
+# the W8 decode kernels (csrc/decode_matmul.cu)
+# ---------------------------------------------------------------------------
+
+
+def _w8(g, L, K, N):
+    return {"w8": torch.randint(-127, 128, (L, K, N), device="cuda", generator=g, dtype=torch.int8),
+            "scale": (torch.rand(L, 1, N, device="cuda", generator=g) * 0.002 + 0.001).bfloat16()}
+
+
+def _head(g, V, H):
+    return {"w8": torch.randint(-127, 128, (V, H), device="cuda", generator=g, dtype=torch.int8),
+            "scale": (torch.rand(V, 1, device="cuda", generator=g) * 0.002 + 0.001).bfloat16()}
+
+
+def decisive_rows(logits: torch.Tensor, rel: float = 1e-4) -> torch.Tensor:
+    """Rows whose top-2 gap exceeds ``rel``·max|logit|: their argmax does not
+    depend on the order of the f32 sums."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]) > rel * logits.abs().amax()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 63, 368])
+def test_w8_layer_kernels_match_plain(M):
+    """QKV, WO and the SwiGLU MLP at Qwen3-4B's widths, at the last layer of
+    a stacked weight (read by pointer offset)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    L, H, NQ, NKV, Fd = 2, 2560, 4096, 1024, 9728
+    wq, wk, wv, wo = _w8(g, L, H, NQ), _w8(g, L, H, NKV), _w8(g, L, H, NKV), _w8(g, L, NQ, H)
+    gate, up, down = _w8(g, L, H, Fd), _w8(g, L, H, Fd), _w8(g, L, Fd, H)
+    x = torch.randn(M, H, device="cuda", generator=g).bfloat16()
+    a = torch.randn(M, NQ, device="cuda", generator=g).bfloat16()
+    li = L - 1
+    n0 = dict(pdm.launches)
+    got = [*pdm.fused_qkv_w8(x, wq, wk, wv, li), pdm.fused_linear_w8(a, wo, li),
+           pdm.fused_mlp_w8(x * 0.05, gate, up, down, li)]
+    torch.cuda.synchronize()
+    assert all(pdm.launches[k] == n0[k] + 1 for k in ("fused_qkv_w8", "fused_linear_w8", "fused_mlp_w8"))
+    ref = [*pdm.fused_qkv_w8_plain(x, wq, wk, wv, li), pdm.fused_linear_w8_plain(a, wo, li),
+           pdm.fused_mlp_w8_plain(x * 0.05, gate, up, down, li)]
+    for name, o, r in zip(("q", "k", "v", "wo", "mlp"), got, ref):
+        assert o.shape == r.shape and o.dtype == torch.bfloat16, name
+        assert agreement(o, r)["ok"], (name, agreement(o, r))
+
+
+@pytest.mark.gpu
+def test_w8_qkv_split_edges():
+    """Each output of the one QKV launch is, bit for bit, what a launch over
+    its weight alone gives: the block grid's walk over wq|wk|wv tiles puts
+    every tile where it belongs."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    L, H = 3, 128
+    wq, wk, wv = _w8(g, L, H, 384), _w8(g, L, H, 128), _w8(g, L, H, 256)
+    x = torch.randn(70, H, device="cuda", generator=g).bfloat16()
+    for li in range(L):
+        q, k, v = pdm.fused_qkv_w8(x, wq, wk, wv, li)
+        for o, w in ((q, wq), (k, wk), (v, wv)):
+            assert torch.equal(o, pdm.fused_linear_w8(x, w, li))
+            assert agreement(o, pdm.fused_linear_w8_plain(x, w, li))["ok"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 63, 368])
+def test_head_argmax_kernel_matches_plain(M):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    V, H = 151936, 2560
+    head = _head(g, V, H)
+    x = torch.randn(M, H, device="cuda", generator=g).bfloat16()
+    n0 = pdm.launches["fused_head_argmax"]
+    tok, mx = pdm.fused_head_argmax(x, head)
+    torch.cuda.synchronize()
+    assert pdm.launches["fused_head_argmax"] == n0 + 1
+    logits = pdm.head_logits(x, head)
+    ref_tok, ref_mx = pdm.fused_head_argmax_plain(x, head)
+    ok = decisive_rows(logits)
+    assert ok.float().mean() >= 0.99 or M < 100 and ok.sum() >= M - 1
+    assert torch.equal(tok[ok], ref_tok[ok])
+    torch.testing.assert_close(mx[ok], ref_mx[ok], rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_head_argmax_ties_go_to_the_lowest_index():
+    """Vocab rows 300, 301 (one tile), 1000 and 7000 (other tiles) are equal
+    and hold the max: the token is 300."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    V, H = 8192, 256
+    head = _head(g, V, H)
+    for r in (300, 301, 1000, 7000):
+        head["w8"][r] = head["w8"][7000]
+        head["scale"][r] = 0.003  # above every other row's, so these rows hold the max
+    x = (head["w8"][7000].float() / 127).bfloat16()[None].repeat(5, 1).contiguous()
+    tok, _ = pdm.fused_head_argmax(x, head)
+    assert tok.tolist() == [300] * 5, tok.tolist()
+
+
+@pytest.mark.gpu
+def test_w8_wrappers_raise_on_shapes_the_kernels_do_not_take():
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    w = _w8(g, 2, 128, 256)
+    x = torch.randn(4, 128, device="cuda", generator=g).bfloat16()
+    with pytest.raises(ValueError):  # K not a multiple of 64
+        pdm.fused_linear_w8(torch.zeros(4, 96, device="cuda", dtype=torch.bfloat16), _w8(g, 1, 96, 128), 0)
+    with pytest.raises(ValueError):  # N not a multiple of 128
+        pdm.fused_linear_w8(x, _w8(g, 1, 128, 192), 0)
+    with pytest.raises(ValueError):  # f32 activations
+        pdm.fused_linear_w8(x.float(), w, 0)
+    with pytest.raises(ValueError):  # not contiguous
+        pdm.fused_linear_w8(torch.zeros(128, 4, device="cuda", dtype=torch.bfloat16).t(), w, 0)
+    with pytest.raises(ValueError):  # no such layer
+        pdm.fused_linear_w8(x, w, 2)
+    with pytest.raises(ValueError):  # vocab not a multiple of 128
+        pdm.fused_head_argmax(x, _head(g, 200, 128))

@@ -67,7 +67,7 @@ def generate_batch(
     on. Returns (tokens [n, max_new], lengths [n]) for the n real samples."""
     if speculative:
         raise NotImplementedError("speculative decoding belongs to the serving slice (ROADMAP: serving extras)")
-    dev = params["text"]["embed"].device
+    dev = params["text"]["final_norm"].device  # a tensor in dense and W8 trees
     n = len(samples)
     if pad_to_batch and n < pad_to_batch:
         samples = samples + [samples[-1]] * (pad_to_batch - n)

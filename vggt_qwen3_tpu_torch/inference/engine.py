@@ -8,8 +8,15 @@ tokens (the ``inputs_embeds`` semantics), finished rows emit
 the step after every row is done (EOS or budget); ``generate`` runs all
 ``max_new_tokens`` steps. Tokens are identical either way.
 
-Not ported in this slice: grammar constraints, prompt penalisation (the
-text-only ARKit path), per-row budgets and the fused W8 head-argmax path.
+``generate``'s pure-greedy fast path: with no constraint, penalty 1.0, no
+n-gram ban and a tied W8 head (``qwen3.greedy_head_eligible``) the only use
+of the logits is an argmax, so the prefill and each step go through
+``qwen3.forward_greedy`` (the fused head-argmax kernel) and carry the next
+token instead of the logits. Its tokens and lengths are those of the slow
+path.
+
+Not ported: grammar constraints, prompt penalisation (the text-only ARKit
+path) and per-row budgets.
 """
 
 from __future__ import annotations
@@ -59,6 +66,19 @@ def _check_supported(gen_cfg: GenerationConfig, constraint) -> None:
         raise NotImplementedError("prompt penalisation (text-only ARKit path) is not ported yet (ROADMAP)")
 
 
+def _start(cfg: Qwen3Config, gen_cfg: GenerationConfig, inputs_embeds, attention_mask):
+    """The empty cache, the [B, S+N] key mask with the prompt's slots set,
+    and the prompt's rotary positions."""
+    B, S, _ = inputs_embeds.shape
+    N = gen_cfg.max_new_tokens
+    dev = inputs_embeds.device
+    cache = qwen3.init_cache(cfg, B, S + N, dtype=gen_cfg.kv_dtype or cfg.dtype, device=dev)
+    am = attention_mask.to(device=dev, dtype=torch.int32)
+    mask = torch.zeros((B, S + N), dtype=torch.int32, device=dev)
+    mask[:, :S] = am
+    return cache, mask, torch.clamp_min(torch.cumsum(am, dim=-1) - 1, 0)
+
+
 def _decode(
     params, cfg: Qwen3Config, gen_cfg: GenerationConfig, inputs_embeds, attention_mask, *,
     early_exit: bool,
@@ -67,11 +87,7 @@ def _decode(
     B, S, _ = inputs_embeds.shape
     N = gen_cfg.max_new_tokens
     dev = inputs_embeds.device
-    cache = qwen3.init_cache(cfg, B, S + N, dtype=gen_cfg.kv_dtype or cfg.dtype, device=dev)
-    am = attention_mask.to(device=dev, dtype=torch.int32)
-    mask = torch.zeros((B, S + N), dtype=torch.int32, device=dev)
-    mask[:, :S] = am
-    positions = torch.clamp_min(torch.cumsum(am, dim=-1) - 1, 0)
+    cache, mask, positions = _start(cfg, gen_cfg, inputs_embeds, attention_mask)
 
     logits, cache = qwen3.forward(
         params, cfg, inputs_embeds=inputs_embeds, attention_mask=mask,
@@ -112,6 +128,42 @@ def _decode(
     return packed, t
 
 
+def _decode_greedy(params, cfg: Qwen3Config, gen_cfg: GenerationConfig, inputs_embeds, attention_mask) -> np.ndarray:
+    """The pure-greedy fast path: prefill + ``max_new_tokens`` steps through
+    ``qwen3.forward_greedy``, carrying the next token. → packed [B, N+1]."""
+    B, S, _ = inputs_embeds.shape
+    N = gen_cfg.max_new_tokens
+    dev = inputs_embeds.device
+    cache, mask, positions = _start(cfg, gen_cfg, inputs_embeds, attention_mask)
+
+    tok, cache = qwen3.forward_greedy(
+        params, cfg, inputs_embeds=inputs_embeds, attention_mask=mask,
+        positions=positions, cache=cache, cache_offset=0, prefill_padding="left",
+    )
+    next_pos = positions[:, -1] + 1
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    out = torch.empty((B, N), dtype=torch.int32, device=dev)
+    for t in range(N):
+        out_tok = torch.where(done, torch.full_like(tok, gen_cfg.pad_token_id), tok)
+        if gen_cfg.eos_token_id is not None:
+            done = done | (tok == gen_cfg.eos_token_id)
+        out[:, t] = out_tok
+        mask[:, S + t] = 1
+        tok, cache = qwen3.forward_greedy(
+            params, cfg, inputs_embeds=qwen3.embed_tokens(params, out_tok[:, None]),
+            attention_mask=mask, positions=(next_pos + t)[:, None],
+            cache=cache, cache_offset=S + t, decode_frontier=True,
+        )
+    n_gen = torch.full((B, 1), N, dtype=torch.int32, device=dev)
+    return torch.cat([out, n_gen], dim=1).cpu().numpy()
+
+
+def greedy_fast_path(params, cfg: Qwen3Config, gen_cfg: GenerationConfig, constraint=None) -> bool:
+    """Whether :func:`generate` takes the pure-greedy fast path."""
+    return (constraint is None and gen_cfg.repetition_penalty == 1.0 and gen_cfg.no_repeat_ngram == 0
+            and qwen3.greedy_head_eligible(params, cfg))
+
+
 @torch.inference_mode()
 def generate(
     params, cfg: Qwen3Config, gen_cfg: GenerationConfig, *,
@@ -122,7 +174,10 @@ def generate(
     Returns (tokens [B, N] int32 — pad-filled after EOS, lengths [B] —
     generated tokens including EOS)."""
     _check_supported(gen_cfg, constraint)
-    packed, _ = _decode(params, cfg, gen_cfg, inputs_embeds, attention_mask, early_exit=False)
+    if greedy_fast_path(params, cfg, gen_cfg, constraint):
+        packed = _decode_greedy(params, cfg, gen_cfg, inputs_embeds, attention_mask)
+    else:
+        packed, _ = _decode(params, cfg, gen_cfg, inputs_embeds, attention_mask, early_exit=False)
     return unpack_lengths(packed, gen_cfg)
 
 

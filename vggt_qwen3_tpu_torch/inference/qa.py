@@ -30,7 +30,7 @@ from .. import resolve_device
 from ..config import QWEN3_TINY, VGGT_TINY, PerceiverConfig, StageConfig, load_stage_config
 from ..data.dataset import DatasetConfig, MultiViewJsonDataset
 from ..data.tokenizer import IMAGE_TOKEN, load_tokenizer
-from ..models import vlm
+from ..models import qwen3, vlm
 from .batching import generate_batch, max_prompt_len
 from .engine import GenerationConfig
 from .postprocess import postprocess_qa_answer
@@ -76,6 +76,7 @@ def run_inference(
     verbose: bool = True,
     quantize: bool = False,
     kv_dtype: Optional[str] = None,
+    quant_mode: str = "w8",
     early_exit: bool = True,
     speculative: bool = False,
     pad_to_len: Optional[int] = None,
@@ -86,12 +87,17 @@ def run_inference(
     """Answer ``samples`` in batches on ``device`` (the params must be there).
 
     ``early_exit`` (default on) stops each batch's decode once every row hit
-    EOS; tokens are identical to the fixed-length loop."""
+    EOS; tokens are identical to the fixed-length loop. ``quantize`` serves
+    the text model with W8 weights (``qwen3.quantize_params``, the caller's
+    tree left as it is): the decode steps run the fused W8 kernels and the
+    int8 LM head."""
     dev = resolve_device(device)
-    if params["text"]["embed"].device.type != dev.type:
-        raise ValueError(f"params are on {params['text']['embed'].device}, run asked for {dev}")
+    text_dev = params["text"]["final_norm"].device
+    if text_dev.type != dev.type:
+        raise ValueError(f"params are on {text_dev}, run asked for {dev}")
     if quantize:
-        raise NotImplementedError("W8 serving weights are the next slice (ROADMAP: W8 decode)")
+        params = dict(params)
+        params["text"] = qwen3.quantize_params(dict(params["text"]), donate=False, mode=quant_mode)
     gen_cfg = GenerationConfig(
         max_new_tokens=max_new_tokens,
         eos_token_id=tokenizer.eos_token_id,
