@@ -6,9 +6,10 @@
 Run from the root of a checkout. It:
 
 1. prints the card (name, ``nvidia-smi`` power limit);
-2. builds the three CUDA sources of the port from ``vggt_qwen3_tpu_torch/csrc``
-   (flash forward, decode attention, the four W8 decode kernels) with
-   ``nvcc`` for sm_90a, in parallel, and prints the ptxas report;
+2. builds the four CUDA sources of the port from ``vggt_qwen3_tpu_torch/csrc``
+   (flash forward, decode attention, block-verify attention, the four W8
+   decode kernels) with ``nvcc`` for sm_90a, in parallel, and prints the
+   ptxas report;
 3. holds each kernel against its plain PyTorch version at its main path's
    shapes (``utils.agreement``, tol 2e-2 scaled to the reference: every
    element within 2e-2·max|ref| + 2e-2·|ref|, and ‖err‖₂ ≤ 5e-3·‖ref‖₂; rows
@@ -22,8 +23,15 @@ Run from the root of a checkout. It:
    events (host included). Kernels that read a stacked per-layer tensor are
    timed with the layer index turning over the layers, so each launch reads
    a layer the one before did not, as in a decode step;
+   The block-verify kernel runs at the ARKit verify shape (q [4, 7, 32, 128]
+   over [36, 4, 8, 832, 128]) with bf16 and int8 caches, ragged starts and
+   offsets, a row whose first queries see no slot (exactly 0) and 1e4 in
+   every slot no query sees;
 4. holds small-width models run on the card (kernels) against the same runs
-   on the CPU (plain versions): bf16, and W8 with an int8 cache;
+   on the CPU (plain versions): bf16; W8 with an int8 cache; and
+   speculative decoding under the action-JSON constraint with an int8 cache
+   (tokens equal on every row whose every step has a top-2 gap above
+   1e-4·max|logit|);
 5. drives the QA path at full width — Qwen3-4B, VGGT-1B, the perceiver_small
    projector, 8 samples × 8 views × 448², random weights from ``--seed`` —
    through ``inference.qa.run_inference`` with the bf16 cache (the CLI
@@ -37,7 +45,25 @@ Run from the root of a checkout. It:
    memory, the launch counts of one timed ``generate`` (counters set to 0
    just before it), tokens identical on the repeat, and a profile by kernel
    family;
-7. prints the kernels line, the card line and, last, the ok line.
+7. drives the ARKit action-JSON path at full width through
+   ``inference.arkit.run_inference`` on the stage of
+   ``configs/stage2_arkit.yaml`` (Qwen3-4B, VGGT-1B, perceiver_small; the 4
+   ARKit test scenes, 10 seeded views each, preprocessed to 448²; batch 4,
+   random weights from ``--seed``, byte tokenizer) with the
+   constraint FSM, once without speculative decoding (decode attention 36 ×
+   steps) and twice with it (block verify 36 × iterations, decode attention
+   0), counters set to 0 just before and read just after each run; the
+   repeat must give the same records, every generation must parse to the
+   schema's five keys, and where the speculative tokens differ from the
+   plain run's, the plain run's top-2 gap at the first differing step must
+   be a near-tie: under 1e-3·max|logit|, or under twice the logit
+   difference the two schedules show on the same tokens with no kernel of
+   the path in them (six one-token steps against one 7-token verify block,
+   bf16 GEMMs at 4 rows against 28, both with the plain attention versions
+   on the card); the same verify block with the kernel holds each layer's
+   kernel call to the plain version on its inputs; then a profile of one
+   speculative run cut at 128 new tokens;
+8. prints the kernels line, the card line and, last, the ok line.
 
 Any failure raises and the script exits non-zero. Without a CUDA device, or
 outside a checkout of the repo, it exits non-zero before printing a result.
@@ -60,6 +86,12 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak
 FLASH_REPLACES = "vggt_qwen3_tpu/ops/flash_attention.py:41"
 DECODE_REPLACES = "vggt_qwen3_tpu/ops/decode_attention.py:55"
+VERIFY_REPLACES = "vggt_qwen3_tpu/ops/decode_attention.py:317"
+ARKIT_SCENES = "data/processed/arkit_synth/test.json"
+SCHEMA_KEYS = ["action", "scene", "center", "normal", "extent"]
+DRAFT_K = 6  # generate_batch's default verify block: k + 1 = 7 queries
+ARKIT_NEW_TOKENS = 340  # every constrained object closes within 340 byte tokens
+ARKIT_PROFILE_TOKENS = 128
 W8_SOURCE = "vggt_qwen3_tpu_torch/csrc/decode_matmul.cu"
 W8_REPLACES = {
     "fused_qkv_w8": "vggt_qwen3_tpu/ops/decode_matmul.py:180",
@@ -90,6 +122,34 @@ def full_stage():
         num_views=8, image_size=448, max_length=512, view_dropout=0.3,
     )
     return StageConfig(model=model, data=data, train=TrainConfig())
+
+
+def arkit_stage():
+    """The stage ``configs/stage2_arkit.yaml`` resolves to, built from the
+    presets (no YAML reader needed): Qwen3-4B, VGGT-1B, the first 96 VGGT
+    tokens resampled to perceiver_small's 128 latents, 10 views, 448²."""
+    import dataclasses
+
+    from vggt_qwen3_tpu_torch.config import DataConfig
+
+    qa = full_stage()
+    return dataclasses.replace(
+        qa, model=dataclasses.replace(qa.model, num_vis_tokens=96),
+        data=DataConfig(datasets={"arkit_synth": "data/processed/arkit_synth/*.json"},
+                        mix_ratio={"arkit_synth": 1.0}, num_views=10, image_size=448, max_length=4096,
+                        view_dropout=0.2))
+
+
+def load_arkit_samples(seed: int, n_views: int = 10, side: int = 96):
+    """The 4 ARKit test scenes (instruction, reference action, scene), each
+    with ``n_views`` seeded uint8 views of the placeholders' size, in the
+    form ``arkit.load_arkit_samples`` gives them (no image decoder needed)."""
+    records = json.loads((REPO / ARKIT_SCENES).read_text())
+    rng = np.random.default_rng(seed)
+    return [dict(question=r["instruction"], answer=r["action_json"], scene_id=r["scene_id"], task=r["task"],
+                 geom_token=r["geom_token"],
+                 images=[rng.integers(0, 256, (side, side, 3), dtype=np.uint8) for _ in range(n_views)])
+            for r in records]
 
 
 def load_samples(seed: int, n_views: int = 8, side: int = 96):
@@ -267,6 +327,70 @@ def layer_turns(L: int):
     launch, so that each launch reads a layer the one before did not (a
     decode step's order; a fixed layer would sit in L2)."""
     return itertools.cycle(range(L)).__next__
+
+
+def check_verify(name, L, B, NH, NKV, T, D, S, li, starts, offs, *, quant, gen):
+    """The block-verify kernel against its plain version: ragged starts and
+    offsets (one row's first queries see no slot and must give exactly 0),
+    and 1e4 in every slot no query of a row sees, so a kernel that reads
+    past a frontier disagrees. Timed with the layer index turning; the
+    yardstick is SDPA over layer ``li`` with an explicit [B, NH, S, T]
+    boolean mask (an int8 cache dequantized outside the timed region)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+
+    q = torch.randn(B, S, NH, D, device="cuda", generator=gen).bfloat16()
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    s0, end0 = da.verify_bounds(start, off, S, T)
+    pos = torch.arange(T, device="cuda")
+    q_end = end0[:, None] + torch.arange(S, device="cuda")[None, :]  # [B, S]
+    hidden = ((pos[None] < s0[:, None]) | (pos[None] >= q_end[:, -1:]))[None, :, None, :]  # [1, B, 1, T]
+    if quant:
+        k = torch.randint(-127, 128, (L, B, NKV, T, D), device="cuda", generator=gen, dtype=torch.int8)
+        v = torch.randint(-127, 128, (L, B, NKV, T, D), device="cuda", generator=gen, dtype=torch.int8)
+        ks = (torch.rand(L, B, NKV, T, device="cuda", generator=gen) * 0.02 + 0.005).bfloat16().masked_fill_(hidden, 1e4)
+        vs = (torch.rand(L, B, NKV, T, device="cuda", generator=gen) * 0.02 + 0.005).bfloat16().masked_fill_(hidden, 1e4)
+    else:
+        k = torch.randn(L, B, NKV, T, D, device="cuda", generator=gen).bfloat16().masked_fill_(hidden[..., None], 1e4)
+        v = torch.randn(L, B, NKV, T, D, device="cuda", generator=gen).bfloat16().masked_fill_(hidden[..., None], 1e4)
+        ks = vs = None
+    args = (q, k, v, li, start, off, ks, vs)
+    got = da.gqa_block_verify_attention(*args)
+    torch.cuda.synchronize()
+    ref = da.gqa_block_verify_attention_plain(*args)
+    empty = s0[:, None] >= q_end  # [B, S] queries with no valid slot
+    if not empty.any() or got[empty].abs().max().item() != 0.0:
+        raise AssertionError(f"block_verify_attention[{name}]: queries with no valid slot are not 0")
+    agree = held_to_plain(f"block_verify_attention[{name}]", got[~empty], ref[~empty])
+    del ref
+    turn = layer_turns(L)
+    kd, vd = (k, v) if not quant else ((k.float() * ks.float()[..., None]).bfloat16(),
+                                       (v.float() * vs.float()[..., None]).bfloat16())
+    mask = ((pos[None, None, :] >= s0[:, None, None]) & (pos[None, None, :] < q_end[:, :, None]))
+    mask = mask[:, None].expand(B, NH, S, T)
+    qt = q.transpose(1, 2)
+    library_ms = device_ms(lambda: (lambda i: F.scaled_dot_product_attention(
+        qt, kd[i], vd[i], attn_mask=mask, enable_gqa=True))(turn()), 2 * L)
+    del kd, vd
+    rotating = lambda: da.gqa_block_verify_attention(q, k, v, turn(), start, off, ks, vs)  # noqa: E731
+    call_ms = cuda_ms(rotating, iters=2 * L)
+    ms = device_ms(rotating, iters=2 * L)
+    plain_ms = device_ms(lambda: da.gqa_block_verify_attention_plain(q, k, v, turn(), start, off, ks, vs), iters=6)
+    # work this data needs: each row's slots [start, end0 + S − 1) read once;
+    # each score row (query j, head) over its own [start, end0 + j)
+    slots = (q_end[:, -1] - s0).clamp_min(0).sum().item()
+    pairs = (q_end - s0[:, None]).clamp_min(0).sum().item() * NH
+    itemsize = 1 if quant else 2
+    nbytes = 2 * slots * NKV * D * itemsize + (2 * slots * NKV * 2 if quant else 0) + 2 * 2 * B * S * NH * D
+    bms, by = bound_ms(nbytes, 4 * D * pairs)
+    out = dict(shape=f"{name} q[{B},{S},{NH},{D}] cache[{L},{B},{NKV},{T},{D}] li turning over {L} layers",
+               **agree, empty_queries=int(empty.sum()), ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bms, bound_by=by)
+    print(f"block_verify_attention {json.dumps(out)}", flush=True)
+    return out
 
 
 def rand_w8(gen, *shape):
@@ -495,6 +619,91 @@ def reference_check_w8(seed: int):
                              f"tokens {same}/{int(decisive.sum())})")
 
 
+def constrained_gaps(engine, run):
+    """Run ``run()`` with the engine's selection recorded: per step, the top-2
+    gap of the logits greedy takes its argmax over (grammar-masked
+    processors, or the raw fallback), relative to the row's max|raw logit|.
+    Returns (run's result, [steps, B] gaps on the host)."""
+    import torch
+
+    gaps = []
+    real = engine.constrained_candidates
+
+    def recording(raw, processed, fsm_state, constraint):
+        cand = real(raw, processed, fsm_state, constraint)
+        top = torch.topk(cand, 2, dim=-1).values
+        gaps.append((top[:, 0] - top[:, 1]) / raw.abs().amax(-1))
+        return cand
+
+    engine.constrained_candidates = recording
+    try:
+        res = run()
+    finally:
+        engine.constrained_candidates = real
+    return res, torch.stack(gaps).cpu().numpy()
+
+
+def reference_check_speculative(seed: int):
+    """A small-width bf16 model (head dim 64, so the kernels run) decodes
+    speculatively under the action-JSON constraint with an int8 cache, on
+    the card and on the CPU. Every row whose every step is decisive (the
+    CPU's top-2 gap above 1e-4·max|logit|) must give the same tokens, and
+    there must be such a row."""
+    import torch
+
+    from vggt_qwen3_tpu_torch.config import Qwen3Config
+    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
+    from vggt_qwen3_tpu_torch.inference import engine, speculative
+    from vggt_qwen3_tpu_torch.inference.constrained import action_json_constraint
+    from vggt_qwen3_tpu_torch.models import qwen3
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+
+    cfg = Qwen3Config(vocab_size=1024, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      intermediate_size=512)
+    cpu_params = qwen3.init_params(torch.Generator().manual_seed(seed), cfg)
+    tok = load_tokenizer(None)
+    table = torch.from_numpy(action_json_constraint(tok, vocab_size=cfg.vocab_size))
+    B, S, N = 8, 24, 48
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(1, 256, (B, S)).astype(np.int32))
+    mask = torch.ones(B, S, dtype=torch.int32)
+    mask[0, :5] = 0
+    gcfg = engine.GenerationConfig(max_new_tokens=N, eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+                                   repetition_penalty=1.1, no_repeat_ngram=4, kv_dtype="int8")
+
+    def run(dev, params, spec=True):
+        with torch.inference_mode():
+            kw = dict(inputs_embeds=qwen3.embed_tokens(params, ids.to(dev)), attention_mask=mask.to(dev),
+                      constraint=table.to(dev))
+            if spec:
+                return speculative.generate_speculative(params, cfg, gcfg, prompt_ids=ids.to(dev), draft_k=DRAFT_K,
+                                                        ngram=3, **kw)
+            return engine.generate(params, cfg, gcfg, **kw)
+
+    ref_t, ref_l, ref_it = run(torch.device("cpu"), cpu_params)
+    (plain_t, _), gaps = constrained_gaps(engine, lambda: run(torch.device("cpu"), cpu_params, spec=False))
+    if not np.array_equal(plain_t, ref_t):
+        raise AssertionError("speculative reference check: on the CPU speculative and plain tokens differ")
+    gpu_params = _to_device(cpu_params, "cuda")
+    da.verify_launches = 0
+    got_t, got_l, got_it = run(torch.device("cuda"), gpu_params)
+    torch.cuda.synchronize()
+    if da.verify_launches != cfg.num_layers * got_it or got_it < 1:
+        raise AssertionError(f"speculative reference check: {da.verify_launches} verify launches, {got_it} iterations")
+    live = np.arange(N)[:, None] < ref_l[None, :]  # [N, B] steps each row emitted
+    decisive_4 = np.where(live, gaps[:N], np.inf).min(0) > 1e-4
+    equal = (got_t == ref_t).all(-1) & (got_l == ref_l)
+    first = [int(np.nonzero(got_t[b] != ref_t[b])[0][0]) if not (got_t[b] == ref_t[b]).all() else None
+             for b in range(B)]
+    print(f"reference check (small width, speculative, action-JSON constraint, int8 cache, card vs CPU): "
+          f"{int(equal.sum())}/{B} rows token-identical; rows decisive at 1e-4: {int(decisive_4.sum())} "
+          f"(identical {int((equal & decisive_4).sum())}); first differing step and CPU gap there: "
+          f"{[(b, t, float(gaps[t, b])) for b, t in enumerate(first) if t is not None]}; "
+          f"iterations card {got_it}, CPU {ref_it}", flush=True)
+    if not decisive_4.any() or not equal[decisive_4].all():
+        raise AssertionError("speculative reference check: card and CPU differ on a decisive row, or none is")
+
+
 def main_path(args):
     """Full-width QA path through run_inference, bf16 then int8 cache."""
     import torch
@@ -672,6 +881,196 @@ def w8_bench_path(args):
     return counts, res
 
 
+def arkit_path(args):
+    """The ARKit action-JSON path at full width: ``arkit.run_inference`` on
+    ``configs/stage2_arkit.yaml`` under the constraint FSM, once without and
+    twice with speculative decoding. Returns the launch counts of the plain
+    run and of the first speculative run."""
+    import torch
+
+    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
+    from vggt_qwen3_tpu_torch.inference import arkit, engine, qa
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+
+    stage = arkit_stage()
+    L, N = stage.model.text.num_layers, ARKIT_NEW_TOKENS
+    t0 = time.perf_counter()
+    params = qa.load_model(stage, rng_seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    print(f"ARKit path: random init of {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tok = load_tokenizer(None)
+    samples = load_arkit_samples(args.seed, stage.data.num_views)
+    vc = stage.model.vision
+    want_flash = vc.patch_depth + 2 * vc.num_layers + L
+
+    def infer(spec, n=N, stats=None):
+        return arkit.run_inference(params, stage, tok, samples, max_new_tokens=n, batch_size=4, verbose=False,
+                                   constrained_json=True, speculative=spec, device="cuda", stats=stats)[0]
+
+    runs = []
+    for spec in (False, True, True):
+        stats = []
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        fa.launches = da.launches = da.verify_launches = 0
+        t = time.perf_counter()
+        res = infer(spec, stats=stats)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = dict(flash_fwd=fa.launches, decode_attention=da.launches, block_verify_attention=da.verify_launches)
+        (batch,) = stats
+        tokens, lengths, iters = batch["tokens"], batch["lengths"], batch["iterations"] or 0
+        runs.append(dict(res=res, tokens=tokens, lengths=lengths, counts=counts, secs=secs, iters=iters))
+        n_tok = int(lengths.sum())
+        what = (f"speculative: {iters} iterations, {n_tok / max(iters, 1):.3f} tokens per iteration"
+                if spec else f"plain: {counts['decode_attention'] // L} decode steps")
+        print(f"ARKit path (constrained JSON, {what}): {secs:.3f} s, {n_tok} tokens (lengths {lengths.tolist()}), "
+              f"launches {json.dumps(counts)}, max memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        want = dict(flash_fwd=want_flash, decode_attention=0 if spec else L * N,
+                    block_verify_attention=L * iters if spec else 0)
+        if counts != want or (spec and iters < 1):
+            raise AssertionError(f"ARKit path (speculative={spec}): launch counts {counts}, expected {want}")
+        for row, n in zip(tokens, lengths):
+            text = tok.decode(row[:n], skip_special_tokens=True)
+            if list(json.loads(text)) != SCHEMA_KEYS:
+                raise AssertionError(f"ARKit path: a generation is not a schema object: {text!r}")
+    plain, spec_a, spec_b = runs
+    if spec_a["res"] != spec_b["res"] or not np.array_equal(spec_a["tokens"], spec_b["tokens"]):
+        raise AssertionError("ARKit path: the speculative repeat gave other records")
+    n_raw = sum(1 for r in plain["res"] if _parses_to_schema(r["raw_prediction"]))
+    print(f"ARKit path: raw_prediction (the reference's brace match) parses to the schema in {n_raw}/"
+          f"{len(plain['res'])} plain records; generations parse in all", flush=True)
+    if spec_a["res"] == plain["res"] and np.array_equal(spec_a["tokens"], plain["tokens"]):
+        print("ARKit path: speculative records and tokens identical to the plain constrained run's", flush=True)
+    else:  # the first differing step of each row must be a near-tie of the plain run
+        _, gaps = constrained_gaps(engine, lambda: infer(False))
+        noise = schedule_witness(params, stage, tok, samples, plain["tokens"])
+        limit = max(1e-3, 2 * noise)
+        print(f"ARKit path: speculative tokens differ from the plain run's; with plain attention the two schedules' "
+              f"logits differ by up to {noise:.3e} of max|logit| on the same tokens, so a flip needs a top-2 gap "
+              f"under {limit:.3e}", flush=True)
+        for b in range(len(plain["tokens"])):
+            diff = np.nonzero(plain["tokens"][b] != spec_a["tokens"][b])[0]
+            if len(diff):
+                t = int(diff[0])
+                print(f"ARKit path: row {b} differs first at step {t}: plain top-2 gap there {gaps[t, b]:.3e} "
+                      f"of max|logit|", flush=True)
+                if not gaps[t, b] < limit:
+                    raise AssertionError(f"ARKit path: row {b} differs at a decisive step {t} ({gaps[t, b]:.3e})")
+    # the profiler's bookkeeping grows with the kernel events (~1,800 an
+    # iteration): profile a speculative run cut at ARKIT_PROFILE_TOKENS
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    infer(True, ARKIT_PROFILE_TOKENS)
+    torch.cuda.synchronize()
+    profile_breakdown(f"ARKit speculative run ({ARKIT_PROFILE_TOKENS} new tokens)",
+                      lambda: infer(True, ARKIT_PROFILE_TOKENS), unprofiled_s=time.perf_counter() - t)
+    del params
+    torch.cuda.empty_cache()
+    return plain["counts"], spec_a["counts"]
+
+
+def schedule_witness(params, stage, tok, samples, tokens) -> float:
+    """How far the two decode schedules' logits differ on the same tokens,
+    with no kernel of the path in them: after one prefill of the ARKit
+    batch, six one-token decode steps (GEMMs at 4 rows) against one 7-token
+    verify block (GEMMs at 28 rows) over the plain run's first tokens, both
+    with qwen3's attention routed through the plain versions on the card.
+    Returns the max over rows and positions of max|Δlogit| / max|logit|.
+
+    The same verify block then runs with the block-verify kernel, each
+    layer's call held to the plain version on the same inputs
+    (``utils.agreement``, tol 2e-2); its logits' distance from the plain
+    block is printed."""
+    import contextlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from vggt_qwen3_tpu_torch.inference import arkit, batching
+    from vggt_qwen3_tpu_torch.models import qwen3
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+    from vggt_qwen3_tpu_torch.utils.agreement import agreement
+
+    cfg, K = stage.model.text, DRAFT_K + 1
+    prompts = [arkit.prompt_for(s["question"]) for s in samples]
+    pad_to = batching.max_prompt_len(tok, prompts)
+    ids, mask = (torch.from_numpy(a).cuda() for a in batching.encode_prompts(tok, prompts, pad_to_len=pad_to))
+    images = batching.stack_views(samples, stage.data.image_size, "cuda")
+    emb, m2 = batching.spliced_prompt(params, stage, tok.convert_tokens_to_ids("<image>"), images, ids, mask)
+    B, S, _ = emb.shape
+    T = S + K
+    am = F.pad(m2.int(), (0, K))
+    pos = torch.clamp_min(torch.cumsum(m2.int(), -1) - 1, 0)
+    blk = torch.from_numpy(np.ascontiguousarray(tokens[:, :K])).cuda()
+    tpos = torch.arange(T, device="cuda")[None, None, :]
+    jpos = torch.arange(K, device="cuda")
+    block_mask = torch.where(tpos < S, am.bool()[:, None, :], (tpos - S) <= jpos[None, :, None]).int()
+
+    @contextlib.contextmanager
+    def attention(decode, verify):  # what qwen3's decode steps and verify blocks call
+        real = qwen3.gqa_decode_attention, qwen3.gqa_block_verify_attention
+        qwen3.gqa_decode_attention, qwen3.gqa_block_verify_attention = decode, verify
+        try:
+            yield
+        finally:
+            qwen3.gqa_decode_attention, qwen3.gqa_block_verify_attention = real
+
+    held = []
+
+    def checked_verify(*a):  # the kernel's output, held to the plain version's on its inputs
+        got = da.gqa_block_verify_attention(*a)
+        held.append(agreement(got, da.gqa_block_verify_attention_plain(*a)))
+        return got
+
+    def verify_block(cache):
+        return qwen3.forward(params["text"], cfg, input_ids=blk, attention_mask=block_mask,
+                             positions=pos[:, -1:] + 1 + jpos[None, :], cache=cache,
+                             cache_offset=torch.full((B,), S, device="cuda"), decode_frontier=True)[0]
+
+    with torch.inference_mode():
+        cache0 = qwen3.init_cache(cfg, B, T, device="cuda")
+        qwen3.forward(params["text"], cfg, inputs_embeds=emb, attention_mask=am, positions=pos, cache=cache0,
+                      prefill_padding="left", last_logit_only=True)
+
+        def fresh():
+            return {n: t.clone() for n, t in cache0.items()}
+
+        with attention(da.gqa_decode_attention_plain, da.gqa_block_verify_attention_plain):
+            cache, step_mask, steps = fresh(), am.clone(), []
+            for j in range(K - 1):
+                step_mask[:, S + j] = 1
+                logits, cache = qwen3.forward(params["text"], cfg, input_ids=blk[:, j:j + 1],
+                                              attention_mask=step_mask, positions=pos[:, -1:] + 1 + j, cache=cache,
+                                              cache_offset=S + j, decode_frontier=True)
+                steps.append(logits[:, 0])
+            verify_plain = verify_block(fresh())
+        with attention(da.gqa_decode_attention, checked_verify):
+            verify_kernel = verify_block(fresh())
+    step_logits = torch.stack(steps, dim=1)  # [B, K-1, V]: after tokens 0..K-2
+
+    def rel(a, b):
+        return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+
+    worst = max(held, key=lambda h: h["rel_rms"])
+    print(f"ARKit path: verify block with the kernel vs with the plain version: logits differ by up to "
+          f"{rel(verify_kernel, verify_plain):.3e} of max|logit|; each of {len(held)} kernel calls held to the "
+          f"plain version on its inputs, worst {json.dumps(worst)}", flush=True)
+    if len(held) != cfg.num_layers or not all(h["ok"] for h in held):
+        raise AssertionError("ARKit path: the block-verify kernel disagrees with its plain version in the verify block")
+    return rel(verify_plain[:, :K - 1], step_logits)
+
+
+def _parses_to_schema(text: str) -> bool:
+    try:
+        return list(json.loads(text)) == SCHEMA_KEYS
+    except (ValueError, TypeError):
+        return False
+
+
 def profile_breakdown(label: str, run, unprofiled_s: float):
     """One more run of a main-path phase under torch.profiler: device time by
     kernel family and by kernel. The profiler slows the host, so the idle
@@ -701,6 +1100,8 @@ def profile_breakdown(label: str, run, unprofiled_s: float):
             return "flash_fwd (ours)"
         if "decode_kernel" in n:
             return "decode_attention (ours)"
+        if "verify_kernel" in n:
+            return "block_verify_attention (ours)"
         if "w8_gemm_kernel" in n or "w8_swiglu_kernel" in n:
             return "W8 GEMMs: qkv, wo, mlp (ours)"
         if "head_tile_kernel" in n or "head_reduce_kernel" in n:
@@ -751,6 +1152,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    phases = {}
+
+    def phase_done(name):  # seconds since the previous phase ended
+        phases[name] = round(time.perf_counter() - t_start - sum(phases.values()), 1)
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -761,13 +1166,14 @@ def main(argv=None) -> int:
     from vggt_qwen3_tpu_torch.inference.batching import max_prompt_len
     from vggt_qwen3_tpu_torch.ops import kernel_build
 
-    libs = kernel_build.build(["flash_fwd", "decode_attention", "decode_matmul"])
+    libs = kernel_build.build(["flash_fwd", "decode_attention", "block_verify", "decode_matmul"])
     for kl in libs:
         print(f"built {kl.name} in {kl.build_seconds:.1f} s -> {kl.path.name}", flush=True)
         for line in kl.ptxas_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
 
+    phase_done("build")
     # main-path shapes: 8 prompts, left-padded, 128 vision tokens spliced in
     stage = full_stage()
     tok = load_tokenizer(None)
@@ -795,12 +1201,36 @@ def main(argv=None) -> int:
                          min(17, txt.num_layers - 1), starts, quant=kv == "int8", gen=gen)
         for kv in ("bf16", "int8")
     }
+    # the ARKit verify shape: 4 scenes, prompts left-padded, the Perceiver's
+    # 128 latents spliced in, a cache of ceil((S + N + k) / 32) · 32 slots
+    from vggt_qwen3_tpu_torch.inference.arkit import prompt_for
+    from vggt_qwen3_tpu_torch.inference.batching import encode_prompts
+
+    arkit_q = [r["instruction"] for r in json.loads((REPO / ARKIT_SCENES).read_text())[:4]]
+    _, arkit_mask = encode_prompts(tok, [prompt_for(q) for q in arkit_q], pad_to_len=0)
+    S_a = arkit_mask.shape[1] + stage.model.projector.num_latents - 1
+    T_a = -(-(S_a + ARKIT_NEW_TOKENS + DRAFT_K) // 32) * 32
+    a_starts = (arkit_mask.shape[1] - arkit_mask.sum(-1)).tolist()
+    a_starts[2] = S_a + 202  # row 2: queries 0 and 1 see no slot
+    a_offs = [S_a + 300, S_a + 117, S_a + 200, S_a + ARKIT_NEW_TOKENS - 1]
+    verify = {
+        kv: check_verify(kv, txt.num_layers, 4, txt.num_heads, txt.num_kv_heads, T_a, txt.head_dim, DRAFT_K + 1,
+                         min(17, txt.num_layers - 1), a_starts, a_offs, quant=kv == "int8", gen=gen)
+        for kv in ("bf16", "int8")
+    }
     w8 = check_w8(txt, 368, gen)  # the W8 bench shape: 368 rows
     torch.cuda.empty_cache()
+    phase_done("kernel checks")
     reference_check(args.seed)
     reference_check_w8(args.seed)
+    reference_check_speculative(args.seed)
+    phase_done("card-vs-CPU checks")
     runs = main_path(args)
+    phase_done("QA path")
     w8_counts, _ = w8_bench_path(args)
+    phase_done("W8 bench path")
+    arkit_plain, arkit_spec = arkit_path(args)
+    phase_done("ARKit path")
 
     f, d = flash["vggt_global"], decode["bf16"]
     kernels = [
@@ -808,10 +1238,13 @@ def main(argv=None) -> int:
              replaces=FLASH_REPLACES, launches=runs[None][0], **f),
         dict(name="decode_attention", route="cuda", source="vggt_qwen3_tpu_torch/csrc/decode_attention.cu",
              replaces=DECODE_REPLACES, launches=runs[None][1], **d),
+        dict(name="block_verify_attention", route="cuda", source="vggt_qwen3_tpu_torch/csrc/block_verify.cu",
+             replaces=VERIFY_REPLACES, launches=arkit_spec["block_verify_attention"], **verify["bf16"]),
     ] + [dict(name=n, route="cuda", source=W8_SOURCE, replaces=W8_REPLACES[n], launches=w8_counts[n], **w8[n])
          for n in W8_REPLACES]
     print(f"int8-cache run launches: flash {runs['int8'][0]}, decode {runs['int8'][1]}", flush=True)
-    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"ARKit plain constrained run launches: {json.dumps(arkit_plain)}", flush=True)
+    print(f"total {time.perf_counter() - t_start:.1f} s, by phase {json.dumps(phases)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -9,7 +9,8 @@ suite.) Whether a card is present is decided inside each test body, so every
 pytest worker collects the same tests; without a card they skip.
 Tolerance: ``utils.agreement`` with tol 2e-2, scaled to the reference (every
 element within 2e-2·max|ref| + 2e-2·|ref|, ‖err‖₂ ≤ 5e-3·‖ref‖₂); rows with
-no valid key exactly 0. The W8 head: the same token on rows whose top-2 gap
+no valid key exactly 0; the block-verify kernel's inputs hold 1e4 in every
+slot no query sees, so a kernel that reads past a frontier fails. The W8 head: the same token on rows whose top-2 gap
 exceeds 1e-4·max|logit| (f32 sums in another order move a logit by far
 less), at least 99 % of the rows at M = 368; the max logit at rtol 1e-5.
 """
@@ -89,6 +90,83 @@ def test_decode_kernel_matches_plain(quant, D, NH, NKV):
     assert pdecode.launches == n0 + 1
     ref = pdecode.gqa_decode_attention_plain(*args)
     assert agreement(got, ref)["ok"], agreement(got, ref)
+
+
+def _verify_inputs(g, S, D, NH, NKV, quant, L=3, B=4, T=96):
+    """Ragged starts and offsets (row 2's query 0 sees no slot; row 3's
+    offset is past T − S, where the end clamp acts) and garbage in every
+    slot no query sees."""
+    q = torch.randn(B, S, NH, D, device="cuda", generator=g).bfloat16()
+    start = torch.tensor([0, 7, 60, 3], dtype=torch.int32, device="cuda")
+    off = torch.tensor([50, 80, 58, T - 2], dtype=torch.int32, device="cuda")
+    end0 = (off.long() + 1).clamp(0, T - (S - 1))
+    pos = torch.arange(T, device="cuda")
+    hidden = ((pos[None] < start[:, None]) | (pos[None] >= (end0 + S - 1)[:, None]))[None, :, None, :]
+    if quant:
+        k = torch.randint(-127, 128, (L, B, NKV, T, D), device="cuda", generator=g, dtype=torch.int8)
+        v = torch.randint(-127, 128, (L, B, NKV, T, D), device="cuda", generator=g, dtype=torch.int8)
+        ks = (torch.rand(L, B, NKV, T, device="cuda", generator=g) * 0.02).bfloat16()
+        vs = (torch.rand(L, B, NKV, T, device="cuda", generator=g) * 0.02).bfloat16()
+        ks.masked_fill_(hidden, 1e4)
+        vs.masked_fill_(hidden, 1e4)
+    else:
+        k = torch.randn(L, B, NKV, T, D, device="cuda", generator=g).bfloat16()
+        v = torch.randn(L, B, NKV, T, D, device="cuda", generator=g).bfloat16()
+        k.masked_fill_(hidden[..., None], 1e4)
+        v.masked_fill_(hidden[..., None], 1e4)
+        ks = vs = None
+    return q, k, v, start, off, ks, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 4, 7, 32])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("D,NH,NKV", [(128, 32, 8), (64, 4, 2)])
+def test_block_verify_kernel_matches_plain(S, quant, D, NH, NKV):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, start, off, ks, vs = _verify_inputs(g, S, D, NH, NKV, quant)
+    args = (q, k, v, 2, start, off, ks, vs)
+    n0, d0 = pdecode.verify_launches, pdecode.launches
+    got = pdecode.gqa_block_verify_attention(*args)
+    torch.cuda.synchronize()
+    assert (pdecode.verify_launches, pdecode.launches) == (n0 + 1, d0)
+    ref = pdecode.gqa_block_verify_attention_plain(*args)
+    assert got.shape == ref.shape == q.shape and got.dtype == torch.bfloat16
+    assert agreement(got, ref)["ok"], agreement(got, ref)
+    end0 = (off.long() + 1).clamp(0, k.shape[3] - (S - 1))
+    empty = (start.long()[:, None] >= end0[:, None] + torch.arange(S, device="cuda")[None, :])  # [B, S]
+    assert empty[2, 0] and not got[empty].any(), "a query with no valid slot must give exactly 0"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_block_verify_kernel_with_one_query_matches_the_decode_kernel(quant):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, start, off, ks, vs = _verify_inputs(g, 1, 128, 32, 8, quant)
+    got = pdecode.gqa_block_verify_attention(q, k, v, 1, start, off, ks, vs)[:, 0]
+    ref = pdecode.gqa_decode_attention(q[:, 0].contiguous(), k, v, 1, start, (off + 1).clamp_max(k.shape[3]), ks, vs)
+    assert agreement(got, ref)["ok"], agreement(got, ref)
+
+
+@pytest.mark.gpu
+def test_block_verify_wrapper_raises_on_shapes_the_kernel_does_not_take():
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v, start, off, _, _ = _verify_inputs(g, 4, 128, 32, 8, False)
+    with pytest.raises(ValueError):  # S * group = 132 score rows
+        pdecode.gqa_block_verify_attention(q.repeat(1, 9, 1, 1)[:, :33].contiguous(), k, v, 0, start, off)
+    with pytest.raises(ValueError):  # f32 queries
+        pdecode.gqa_block_verify_attention(q.float(), k, v, 0, start, off)
+    with pytest.raises(ValueError):  # D = 32
+        x = torch.zeros(4, 2, 8, 32, device="cuda", dtype=torch.bfloat16)
+        c = torch.zeros(1, 4, 2, 16, 32, device="cuda", dtype=torch.bfloat16)
+        pdecode.gqa_block_verify_attention(x, c, c, 0, start, off)
+    with pytest.raises(ValueError):  # no such layer
+        pdecode.gqa_block_verify_attention(q, k, v, 3, start, off)
+    with pytest.raises(ValueError):  # not contiguous
+        pdecode.gqa_block_verify_attention(q.transpose(1, 2), k, v, 0, start, off)
 
 
 @pytest.mark.gpu

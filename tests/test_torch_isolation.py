@@ -66,6 +66,24 @@ def test_chip_smoke_stage_is_stage1_3d():
     assert built.data == loaded.data
 
 
+def test_chip_smoke_arkit_stage_is_stage2_arkit():
+    """The ARKit phase's stage and samples are those of the CLI (built and
+    made without a YAML reader or an image decoder; the views are seeded)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from vggt_qwen3_tpu_torch.config import load_stage_config
+    from vggt_qwen3_tpu_torch.inference.arkit import load_arkit_samples
+
+    built = chip_smoke.arkit_stage()
+    loaded = load_stage_config(REPO / "configs/stage2_arkit.yaml")
+    assert built.model == loaded.model and built.data == loaded.data
+    ours = chip_smoke.load_arkit_samples(0)
+    cli = load_arkit_samples("data/processed/arkit_synth/test.json", 9, 10, 448, root=str(REPO))
+    keys = ("question", "answer", "scene_id", "task", "geom_token")
+    assert [{k: s[k] for k in keys} for s in ours] == [{k: s[k] for k in keys} for s in cli]
+    assert all(len(s["images"]) == 10 and s["images"][0].shape == c["images"][0].shape for s, c in zip(ours, cli))
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     alone = tmp_path / "chip_smoke.py"
     alone.write_text((REPO / "chip_smoke.py").read_text())

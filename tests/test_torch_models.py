@@ -183,10 +183,12 @@ def test_engine_matches_jax_generate(jax_flash_prefill):
     assert plen[0] == 3 and 1 <= steps <= N
 
 
-@pytest.mark.parametrize("call", ["chunk_at_offset", "one_token_undeclared", "two_token_decode"])
+@pytest.mark.parametrize("call", ["chunk_at_offset", "one_token_undeclared", "two_token_decode",
+                                  "per_row_block_without_query_mask"])
 def test_qwen3_cached_calls_off_the_path_raise(call):
-    """A cached call is a prefill or a one-token decode step; anything else
-    (chunked prefill, multi-token verify) belongs to the serving slice."""
+    """A cached call is a prefill, a one-token decode step or a per-row
+    verify block with a [B, S, T] mask; anything else (a chunked prefill, a
+    block at one offset for all rows or without per-query masks) raises."""
     _, pcfg, _, pp = _qwen_setup(7)
     B, S = 2, 6
     ids = torch.from_numpy(np.random.default_rng(7).integers(0, pcfg.vocab_size, (B, S)).astype(np.int32))
@@ -195,6 +197,8 @@ def test_qwen3_cached_calls_off_the_path_raise(call):
     mask = torch.ones(B, S + 2, dtype=torch.int32)
     kw = {"chunk_at_offset": dict(input_ids=ids[:, :2], cache_offset=S),
           "one_token_undeclared": dict(input_ids=ids[:, :1], cache_offset=S),
-          "two_token_decode": dict(input_ids=ids[:, :2], cache_offset=S, decode_frontier=True)}[call]
+          "two_token_decode": dict(input_ids=ids[:, :2], cache_offset=S, decode_frontier=True),
+          "per_row_block_without_query_mask": dict(input_ids=ids[:, :2], cache_offset=torch.tensor([S, S - 1]),
+                                                   decode_frontier=True)}[call]
     with pytest.raises(NotImplementedError, match="serving extras"):
         pqwen3.forward(pp, pcfg, attention_mask=mask, cache=cache, **kw)

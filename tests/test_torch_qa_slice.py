@@ -92,3 +92,36 @@ def test_qa_slice_tokens_and_predictions_identical(setup, kv_dtype, monkeypatch)
     np.testing.assert_array_equal(p_tok[0][1], j_tok[0][1])
     assert (p_tok[0][1] > 0).all()
     assert pres == jres
+
+
+def test_qa_slice_speculative_matches_jax(setup, monkeypatch):
+    """``run_inference(speculative=True)``: the port's prompt-lookup
+    speculative decoding against JAX's on the same slice, JAX's decode
+    steps and verify blocks in its Pallas kernels (interpret mode) as on the
+    TPU: the tiny stage keeps a bf16 cache under float32 weights, where JAX's
+    CPU-only XLA attention rounds P to bf16 and the kernels do not."""
+    from vggt_qwen3_tpu.ops import decode_attention as jdecode
+
+    jstage, pstage, jparams, pparams, samples = setup
+
+    def attend(q, k, v, *, causal=False, kv_start=None, kv_end=None):
+        return jax_flash(q, k, v, causal=causal, kv_start=kv_start, kv_end=kv_end, interpret=True)
+
+    jax.clear_caches()
+    monkeypatch.setattr(jqwen3, "flash_eligible", lambda *a: True)
+    monkeypatch.setattr(jqwen3, "attend", attend)
+    monkeypatch.setenv("VGGT_DECODE_KERNEL", "force")
+    monkeypatch.setattr(jdecode, "decode_attention_eligible", lambda *a: True)
+    j_tok = _capture(monkeypatch, jqa)
+    p_tok = _capture(monkeypatch, pqa)
+    kw = dict(max_new_tokens=MAX_NEW, batch_size=8, verbose=False, speculative=True)
+    jres = jqa.run_inference(jparams, jstage, jload_tokenizer(None), samples, **kw)
+    pres = pqa.run_inference(pparams, pstage, pload_tokenizer(None), samples, device="cpu", **kw)
+    plain = pqa.run_inference(pparams, pstage, pload_tokenizer(None), samples, device="cpu",
+                              **dict(kw, speculative=False))
+    jax.clear_caches()
+
+    np.testing.assert_array_equal(p_tok[0][0], j_tok[0][0])
+    np.testing.assert_array_equal(p_tok[0][1], j_tok[0][1])
+    np.testing.assert_array_equal(p_tok[0][0], p_tok[1][0])  # the port's own plain decode
+    assert pres == jres == plain

@@ -6,11 +6,16 @@ and function names so each counterpart is easy to find:
 - ``models/``   : Qwen3 decoder, VGGT aggregator, Perceiver projector and the
   composed VLM, as plain functions over dictionaries of tensors (the JAX
   param-tree layout, stacked ``[L, ...]`` per-layer weights included).
-- ``ops/``      : norms, RoPE, sampling, preprocessing and the attention
-  entry points. The two attention kernels of the QA path are hand-written
-  CUDA C++ for Hopper (``csrc/flash_fwd.cu``, ``csrc/decode_attention.cu``),
-  each with its plain PyTorch version beside its wrapper.
-- ``inference/``: KV-cache engine, batching and the QA CLI.
+- ``ops/``      : norms, RoPE, sampling, preprocessing, W8 quantization and
+  the kernel entry points. The kernels are hand-written CUDA C++ for Hopper
+  (``csrc/flash_fwd.cu``, ``csrc/decode_attention.cu``,
+  ``csrc/block_verify.cu`` — speculative block-verify attention — and
+  ``csrc/decode_matmul.cu``), each with its plain PyTorch version beside its
+  wrapper.
+- ``inference/``: KV-cache engine (constraint FSM, per-row budgets),
+  prompt-lookup speculative decoding, the action-JSON constraint tables,
+  batching, and the QA and ARKit CLIs (``python -m
+  vggt_qwen3_tpu_torch.inference.qa`` / ``.arkit``).
 
 Kernels are chosen by device: a CUDA tensor goes through the kernel (or the
 wrapper raises), a CPU tensor through the plain version. Entry points default

@@ -1,6 +1,7 @@
-"""Batch preparation for the QA CLI (counterpart of
+"""Batch preparation for the QA and ARKit CLIs (counterpart of
 ``vggt_qwen3_tpu/inference/batching.py``): prompt encode → left pad →
-preprocess and stack views → VGGT → Perceiver → embed → splice → generate.
+preprocess and stack views → VGGT → Perceiver → embed → splice → generate
+(or early-exit or speculative generation, optionally under a constraint).
 
 Prompts pad to a caller-chosen length and short final chunks pad to the full
 batch (rows repeated, outputs trimmed), as the JAX module does for its
@@ -20,6 +21,7 @@ from ..data.tokenizer import IMAGE_TOKEN, pad_and_mask
 from ..models import qwen3, vlm
 from ..ops.preprocess import preprocess_views
 from .engine import GenerationConfig, generate, generate_early_exit
+from .speculative import generate_speculative
 
 
 def encode_prompts(tokenizer, prompts: List[str], *, pad_to_len: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -61,12 +63,21 @@ def generate_batch(
     pad_to_batch: Optional[int] = None,
     constraint=None,
     speculative: bool = False,
+    draft_k: int = 6,
+    ngram: int = 3,
     early_exit: bool = False,
+    stats: Optional[Dict] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Run one spliced-prompt generation batch on the device the params are
-    on. Returns (tokens [n, max_new], lengths [n]) for the n real samples."""
-    if speculative:
-        raise NotImplementedError("speculative decoding belongs to the serving slice (ROADMAP: serving extras)")
+    on. Returns (tokens [n, max_new], lengths [n]) for the n real samples.
+
+    ``constraint``: optional FSM table (``inference/constrained.py``).
+    ``speculative``: prompt-lookup speculative decoding
+    (``inference/speculative.py``; token-exact), the pre-splice text ids
+    seeding the draft memory, so the system hint's text is draftable.
+    ``early_exit``: stop once every row hit EOS (token-exact).
+    ``stats``: if given, receives ``iterations``, the speculative
+    iterations or early-exit steps the batch took (None otherwise)."""
     dev = params["text"]["final_norm"].device  # a tensor in dense and W8 trees
     n = len(samples)
     if pad_to_batch and n < pad_to_batch:
@@ -79,8 +90,14 @@ def generate_batch(
     image_token_id = tokenizer.convert_tokens_to_ids(IMAGE_TOKEN)
     embeds, mask2 = spliced_prompt(params, stage, image_token_id, images, ids, mask)
     kw = dict(inputs_embeds=embeds, attention_mask=mask2, constraint=constraint)
-    if early_exit:
-        tokens, lengths, _ = generate_early_exit(params["text"], stage.model.text, gen_cfg, **kw)
+    iterations = None
+    if speculative:
+        tokens, lengths, iterations = generate_speculative(params["text"], stage.model.text, gen_cfg, lookup_ids=ids,
+                                                           lookup_mask=mask, draft_k=draft_k, ngram=ngram, **kw)
+    elif early_exit:
+        tokens, lengths, iterations = generate_early_exit(params["text"], stage.model.text, gen_cfg, **kw)
     else:
         tokens, lengths = generate(params["text"], stage.model.text, gen_cfg, **kw)
+    if stats is not None:
+        stats["iterations"] = iterations
     return np.asarray(tokens)[:n], np.asarray(lengths)[:n]

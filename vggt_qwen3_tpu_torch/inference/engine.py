@@ -5,8 +5,13 @@ One prefill over the (possibly vision-spliced) prompt, then single-token
 decode steps: HF repetition penalty and no-repeat-ngram over the generated
 tokens (the ``inputs_embeds`` semantics), finished rows emit
 ``pad_token_id``. ``generate_early_exit`` is a host ``while`` loop that stops
-the step after every row is done (EOS or budget); ``generate`` runs all
-``max_new_tokens`` steps. Tokens are identical either way.
+the step after every row is done (EOS or per-row budget); ``generate`` runs
+all ``max_new_tokens`` steps. Tokens are identical either way.
+
+``constraint``: an optional FSM transition table ``[states + 1, V]`` (int16,
+−1 = forbidden; ``inference/constrained.py``) on the device. Each step masks
+the logits to the tokens its state allows (:func:`constrained_greedy`) and
+advances the per-row state by one table lookup.
 
 ``generate``'s pure-greedy fast path: with no constraint, penalty 1.0, no
 n-gram ban and a tied W8 head (``qwen3.greedy_head_eligible``) the only use
@@ -15,8 +20,7 @@ of the logits is an argmax, so the prefill and each step go through
 token instead of the logits. Its tokens and lengths are those of the slow
 path.
 
-Not ported: grammar constraints, prompt penalisation (the text-only ARKit
-path) and per-row budgets.
+Not ported: prompt penalisation (the text-only ARKit path).
 """
 
 from __future__ import annotations
@@ -59,11 +63,56 @@ def unpack_lengths(packed: np.ndarray, gen_cfg: GenerationConfig):
     return out, lengths
 
 
-def _check_supported(gen_cfg: GenerationConfig, constraint) -> None:
-    if constraint is not None:
-        raise NotImplementedError("constrained decoding belongs to the serving slice (ROADMAP: serving extras)")
+def check_supported(gen_cfg: GenerationConfig) -> None:
     if gen_cfg.penalize_prompt:
         raise NotImplementedError("prompt penalisation (text-only ARKit path) is not ported yet (ROADMAP)")
+
+
+def row_budget(budget, B: int, N: int, device) -> torch.Tensor:
+    """Per-row token budgets as an int32 [B] tensor (default ``N``); each
+    must be at least 1 (a 0-budget row would still emit one token)."""
+    if budget is None:
+        return torch.full((B,), N, dtype=torch.int32, device=device)
+    budget = torch.as_tensor(budget).to(device=device, dtype=torch.int32)
+    if not bool((budget >= 1).all()):
+        raise ValueError("per-row budgets must be >= 1")
+    return budget
+
+
+def _processors(logits, seen_ids, seen_len, gen_cfg: GenerationConfig):
+    logits = apply_repetition_penalty(logits, seen_ids, seen_len, gen_cfg.repetition_penalty)
+    return apply_no_repeat_ngram(logits, seen_ids, seen_len, gen_cfg.no_repeat_ngram)
+
+
+def constrained_candidates(raw_logits, processed, fsm_state, constraint):
+    """The logits greedy selection takes its argmax over, under an optional
+    FSM table.
+
+    The grammar masks the processed logits; a row where the processors
+    banned every token the grammar allows (structural JSON tokens repeat, so
+    the n-gram ban can hit them all) falls back to the grammar-masked raw
+    logits: the grammar takes precedence over the processors."""
+    if constraint is None:
+        return processed
+    allowed = constraint[fsm_state.long()] >= 0
+    cand = processed.masked_fill(~allowed, float("-inf"))
+    feasible = torch.isfinite(cand).any(-1, keepdim=True)
+    return torch.where(feasible, cand, raw_logits.masked_fill(~allowed, float("-inf")))
+
+
+def constrained_greedy(raw_logits, processed, fsm_state, constraint):
+    """Greedy token under an optional FSM table: the one selection rule of
+    every decode path (``generate``, early exit, speculative)."""
+    return greedy_token(constrained_candidates(raw_logits, processed, fsm_state, constraint))
+
+
+def advance_fsm(constraint, fsm_state, tok, moving):
+    """The FSM state after ``tok`` where ``moving``: ``max(table[state, tok],
+    0)``; unchanged elsewhere (and without a constraint)."""
+    if constraint is None:
+        return fsm_state
+    nxt = constraint[fsm_state.long(), tok.long()].to(fsm_state.dtype)
+    return torch.where(moving, nxt.clamp_min(0), fsm_state)
 
 
 def _start(cfg: Qwen3Config, gen_cfg: GenerationConfig, inputs_embeds, attention_mask):
@@ -81,7 +130,7 @@ def _start(cfg: Qwen3Config, gen_cfg: GenerationConfig, inputs_embeds, attention
 
 def _decode(
     params, cfg: Qwen3Config, gen_cfg: GenerationConfig, inputs_embeds, attention_mask, *,
-    early_exit: bool,
+    early_exit: bool, constraint=None, budget=None,
 ) -> Tuple[np.ndarray, int]:
     """Prefill + decode steps → (packed [B, N+1] = out | n_gen, steps run)."""
     B, S, _ = inputs_embeds.shape
@@ -101,18 +150,20 @@ def _decode(
     seen_len = torch.zeros((B,), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     n_gen = torch.zeros((B,), dtype=torch.int32, device=dev)
+    fsm_state = torch.zeros((B,), dtype=torch.int32, device=dev)
+    budget = row_budget(budget, B, N, dev)
     out = torch.full((B, N), gen_cfg.pad_token_id, dtype=torch.int32, device=dev)
 
     t = 0
     while t < N and not (early_exit and bool(done.all())):
-        processed = apply_repetition_penalty(next_logits, seen_ids, seen_len, gen_cfg.repetition_penalty)
-        processed = apply_no_repeat_ngram(processed, seen_ids, seen_len, gen_cfg.no_repeat_ngram)
-        tok = greedy_token(processed)
+        processed = _processors(next_logits, seen_ids, seen_len, gen_cfg)
+        tok = constrained_greedy(next_logits, processed, fsm_state, constraint)
+        fsm_state = advance_fsm(constraint, fsm_state, tok, ~done)
         out_tok = torch.where(done, torch.full_like(tok, gen_cfg.pad_token_id), tok)
         n_gen = torch.where(done, n_gen, n_gen + 1)
         if gen_cfg.eos_token_id is not None:
             done = done | (tok == gen_cfg.eos_token_id)
-        done = done | (n_gen >= N)
+        done = done | (n_gen >= budget)
         seen_ids[rows, seen_len.clamp(0, N - 1).long()] = out_tok
         seen_len = seen_len + 1
         out[:, t] = out_tok
@@ -173,22 +224,26 @@ def generate(
 
     Returns (tokens [B, N] int32 — pad-filled after EOS, lengths [B] —
     generated tokens including EOS)."""
-    _check_supported(gen_cfg, constraint)
+    check_supported(gen_cfg)
     if greedy_fast_path(params, cfg, gen_cfg, constraint):
         packed = _decode_greedy(params, cfg, gen_cfg, inputs_embeds, attention_mask)
     else:
-        packed, _ = _decode(params, cfg, gen_cfg, inputs_embeds, attention_mask, early_exit=False)
+        packed, _ = _decode(params, cfg, gen_cfg, inputs_embeds, attention_mask, early_exit=False,
+                            constraint=constraint)
     return unpack_lengths(packed, gen_cfg)
 
 
 @torch.inference_mode()
 def generate_early_exit(
     params, cfg: Qwen3Config, gen_cfg: GenerationConfig, *,
-    inputs_embeds: torch.Tensor, attention_mask: torch.Tensor, constraint=None,
+    inputs_embeds: torch.Tensor, attention_mask: torch.Tensor, constraint=None, budget=None,
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """:func:`generate` that stops once every row is done; also returns the
-    number of decode steps run."""
-    _check_supported(gen_cfg, constraint)
-    packed, steps = _decode(params, cfg, gen_cfg, inputs_embeds, attention_mask, early_exit=True)
+    number of decode steps run. ``budget``: optional per-row token budgets
+    [B] (each ≥ 1, at most ``max_new_tokens``); a row finishes after
+    emitting its budget."""
+    check_supported(gen_cfg)
+    packed, steps = _decode(params, cfg, gen_cfg, inputs_embeds, attention_mask, early_exit=True,
+                            constraint=constraint, budget=budget)
     out, lengths = unpack_lengths(packed, gen_cfg)
     return out, lengths, steps

@@ -8,7 +8,7 @@ with repetition penalty 1.1, the answer heuristics of
     python -m vggt_qwen3_tpu_torch.inference.qa --config configs/stage1_3d.yaml \\
         --glob 'data/processed/scanqa/*.jsonl' --num_samples 8 \\
         --max_new_tokens 32 --output_jsonl out.jsonl [--random_full] [--tiny] \\
-        [--mock_vision] [--batch_size 8] [--device cuda]
+        [--mock_vision] [--batch_size 8] [--speculative] [--device cuda]
 
 Weights are random (seeded); restoring a trained checkpoint waits for the
 training slice.
@@ -87,10 +87,11 @@ def run_inference(
     """Answer ``samples`` in batches on ``device`` (the params must be there).
 
     ``early_exit`` (default on) stops each batch's decode once every row hit
-    EOS; tokens are identical to the fixed-length loop. ``quantize`` serves
-    the text model with W8 weights (``qwen3.quantize_params``, the caller's
-    tree left as it is): the decode steps run the fused W8 kernels and the
-    int8 LM head."""
+    EOS; tokens are identical to the fixed-length loop. ``speculative``:
+    prompt-lookup speculative decoding (also token-identical; it wins when
+    answers echo prompt spans). ``quantize`` serves the text model with W8
+    weights (``qwen3.quantize_params``, the caller's tree left as it is):
+    the decode steps run the fused W8 kernels and the int8 LM head."""
     dev = resolve_device(device)
     text_dev = params["text"]["final_norm"].device
     if text_dev.type != dev.type:
@@ -200,6 +201,7 @@ def main() -> None:
     p.add_argument("--random_full", action="store_true",
                    help="full-size model with seeded random weights")
     p.add_argument("--no_early_exit", action="store_true")
+    p.add_argument("--speculative", action="store_true", help="prompt-lookup speculative decoding (token-exact)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args()
 
@@ -215,7 +217,7 @@ def main() -> None:
         params, stage, tokenizer, samples,
         max_new_tokens=args.max_new_tokens, batch_size=args.batch_size,
         output_path=Path(args.output_jsonl) if args.output_jsonl else None,
-        early_exit=not args.no_early_exit, device=args.device,
+        early_exit=not args.no_early_exit, speculative=args.speculative, device=args.device,
     )
 
 

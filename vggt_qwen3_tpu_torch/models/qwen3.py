@@ -10,10 +10,17 @@ positions are passed separately (HF position-id semantics).
 Attention on the cached paths:
 - prefill (``prefill_padding`` declared, offset 0): the flash-attention
   kernel over the fresh K/V of the prompt, causal with per-row bounds;
-- decode (``decode_frontier``, S = 1): the GQA decode-attention kernel over
-  the whole stacked cache at layer ``li``;
-- any other cached call (chunked prefill, multi-token verify) raises
-  ``NotImplementedError``: it belongs to the serving slice.
+- decode (``decode_frontier``, S = 1, a [B, T] mask): the GQA
+  decode-attention kernel over the whole stacked cache at layer ``li``;
+- speculative block verify (``decode_frontier``, [B] offsets, S > 1, a
+  [B, S, T] per-query mask): the block-verify kernel, query j seeing its
+  row's frontier plus j slots of the block;
+- any other cached call (a chunked prefill, plain attention over the cache)
+  raises ``NotImplementedError``.
+
+``cache_offset`` is an int, or a [B] tensor of per-row offsets (every
+sequence at its own depth, as speculative decoding leaves them): the S new
+K/V of row b land at slots ``offset[b] + arange(S)``.
 
 The cache is updated **in place** (the JAX module returns an updated copy);
 ``forward_hidden`` returns the same dict it was given.
@@ -26,8 +33,7 @@ W8 kernels of ``ops/decode_matmul.py`` run instead, over the stacked weights
 at layer ``li``. The int8 LM head scales its f32 logits after the dot;
 :func:`greedy_tokens` reaches the fused head-argmax kernel.
 
-Not ported: LoRA, the W8A8 and W4 modes, per-row cache offsets (serving)
-and the pipeline.
+Not ported: LoRA, the W8A8 and W4 modes and the pipeline.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import torch.nn.functional as F
 from ..config import Qwen3Config
 from ..ops import quant
 from ..ops.attention import combine_masks, make_causal_mask, mha
-from ..ops.decode_attention import gqa_decode_attention
+from ..ops.decode_attention import gqa_block_verify_attention, gqa_decode_attention
 from ..ops.decode_matmul import fused_head_argmax, fused_linear_w8, fused_mlp_w8, fused_qkv_w8
 from ..ops.flash_attention import flash_attention
 from ..ops.norms import rms_norm
@@ -170,6 +176,38 @@ def _layer_post_attn(cfg: Qwen3Config, h, lp, attn, stacked=None, li: int = 0):
     return h + quant.linear(F.silu(quant.linear(x, lp["gate"])) * quant.linear(x, lp["up"]), lp["down"])
 
 
+def _row_write_plan(offset: torch.Tensor, S: int, T: int):
+    """Where an S-position block lands per row at ``offset[b] + arange(S)``,
+    as an index plan with no slot twice: row b writes the S distinct slots
+    ``[base, base + S)``, ``base = min(offset[b], T − S)``, each slot taking
+    block position ``slot − offset[b]`` where that is ≥ 0 and keeping its own
+    content elsewhere. So positions past the cache's end (a finished row's
+    block at the budget's edge) are dropped, as the JAX module's scatter
+    drops them. Returns (rows [B, 1], slots [B, S], src [B, S], fresh [B, S])."""
+    if S > T:
+        raise ValueError(f"a block of {S} positions does not fit a cache of {T} slots")
+    off = offset.long()
+    slots = torch.clamp_max(off, T - S)[:, None] + torch.arange(S, device=off.device)
+    src = slots - off[:, None]
+    rows = torch.arange(off.shape[0], device=off.device)[:, None]
+    return rows, slots, src.clamp_min(0), src >= 0
+
+
+def _write_kv(buf: torch.Tensor, li: int, val: torch.Tensor, offset) -> None:
+    """Write ``val`` [B, S, NKV, ...] (sequence-major) into layer ``li`` of
+    the head-major ``buf`` [L, B, NKV, T, ...], in place: at slots
+    ``offset + arange(S)`` for an int ``offset``, or per row by a
+    :func:`_row_write_plan`."""
+    if isinstance(offset, int):
+        buf[li, :, :, offset:offset + val.shape[1]] = val.transpose(1, 2).to(buf.dtype)
+        return
+    rows, slots, src, fresh = offset
+    layer = buf[li]
+    # advanced indices split by the head slice: the indexed view is [B, S, NKV, ...]
+    fresh = fresh.view(fresh.shape + (1,) * (val.ndim - 2))
+    layer[rows, :, slots] = torch.where(fresh, val[rows, src].to(buf.dtype), layer[rows, :, slots])
+
+
 def forward_hidden(
     params: Params,
     cfg: Qwen3Config,
@@ -178,7 +216,7 @@ def forward_hidden(
     attention_mask: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
-    cache_offset: int = 0,
+    cache_offset=0,
     prefill_padding: Optional[str] = None,
     decode_frontier: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -187,27 +225,37 @@ def forward_hidden(
     Args:
         inputs_embeds: [B, S, H].
         attention_mask: [B, T] over key positions (T = cache length with a
-            cache, else S); 1 = valid. None = all valid.
-        positions: [B, S] rotary positions (default ``cache_offset + arange(S)``).
+            cache, else S), or [B, S, T] per query for a block verify; 1 =
+            valid. None = all valid.
+        positions: [B, S] rotary positions (default ``cache_offset +
+            arange(S)``, per row for [B] offsets).
         cache: optional cache from :func:`init_cache`, written in place.
-        cache_offset: slot where this segment's K/V are written (an int).
+        cache_offset: slot where this segment's K/V are written: an int, or
+            a [B] tensor of per-row offsets (with a cache and a mask that
+            carries the causal frontier).
         prefill_padding: declares the prompt's valid slots one contiguous run
             per row (requires ``cache_offset == 0``) — the flash prefill.
         decode_frontier: declares each mask row one contiguous ``[start,
-            end)`` run that already encodes causality — with S = 1, the
-            decode-attention kernel.
+            end)`` run that already encodes causality — with S = 1 and a
+            [B, T] mask, the decode-attention kernel; with [B] offsets, S > 1
+            and a [B, S, T] mask (query j's row = query 0's plus j slots),
+            the block-verify kernel.
     Returns:
         (hidden [B, S, H] after the final norm, the cache or None)
     """
-    if isinstance(cache_offset, torch.Tensor) and cache_offset.ndim == 1:
-        raise NotImplementedError(
-            "per-row cache offsets belong to the serving slice (ROADMAP: serving extras)"
-        )
-    cache_offset = int(cache_offset)
     B, S, _ = inputs_embeds.shape
     dev = inputs_embeds.device
-    if positions is None:
-        positions = (cache_offset + torch.arange(S, device=dev))[None, :].expand(B, S)
+    per_row = isinstance(cache_offset, torch.Tensor) and cache_offset.ndim == 1
+    if per_row:
+        if cache is None or attention_mask is None:
+            raise ValueError("per-row cache offsets need a cache and a frontier mask")
+        cache_offset = cache_offset.to(device=dev, dtype=torch.int32)
+        if positions is None:
+            positions = cache_offset[:, None] + torch.arange(S, device=dev)[None, :]
+    else:
+        cache_offset = int(cache_offset)
+        if positions is None:
+            positions = (cache_offset + torch.arange(S, device=dev))[None, :].expand(B, S)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
     layers = params["layers"]
@@ -225,29 +273,36 @@ def forward_hidden(
 
     use_flash = prefill_padding is not None
     use_decode = decode_frontier and S == 1 and attention_mask is not None and attention_mask.ndim == 2
-    if not (use_flash or use_decode):
+    use_verify = decode_frontier and per_row and S > 1 and attention_mask.ndim == 3
+    if not (use_flash or use_decode or use_verify):
         raise NotImplementedError(
-            "a cached call is a prefill (prefill_padding) or a one-token decode step "
-            "(decode_frontier with a [B, T] mask); other cached calls belong to the "
-            "serving slice (ROADMAP: serving extras)"
+            "a cached call is a prefill (prefill_padding), a one-token decode step "
+            "(decode_frontier with a [B, T] mask) or a speculative verify block "
+            "(decode_frontier, [B] offsets and a [B, S, T] mask); chunked prefill and "
+            "plain attention over the cache are not ported (ROADMAP: serving extras)"
         )
     if use_flash:
-        if cache_offset != 0:
+        if per_row or cache_offset != 0:
             raise ValueError("prefill_padding requires cache_offset == 0")
         prompt_mask = (attention_mask[:, :S].int() if attention_mask is not None
                        else torch.ones((B, S), dtype=torch.int32, device=dev))
         kv_start = torch.argmax(prompt_mask, dim=-1).int()
         kv_end = kv_start + prompt_mask.sum(-1).int()
-    else:
+    elif use_decode:
         am = attention_mask.int()
         f_start = torch.argmax(am, dim=-1).int()
         # causal clamp: a sloppier caller's mask must not see the future
-        f_end = torch.clamp_max(f_start + am.sum(-1).int(), cache_offset + 1)
+        f_end = f_start + am.sum(-1).int()
+        f_end = torch.minimum(f_end, cache_offset + 1) if per_row else f_end.clamp_max(cache_offset + 1)
+    else:  # query 0's row gives the block's frontier; query j sees j slots more
+        am0 = attention_mask[:, 0].int()
+        f_start = torch.argmax(am0, dim=-1).int()
+        f_off = torch.minimum(f_start + am0.sum(-1).int() - 1, cache_offset)
     quantized = "ks" in cache
-    sl = slice(cache_offset, cache_offset + S)
-    # a decode step over W8 layers runs the fused W8 kernels (the prefill,
-    # like the JAX module's, dequantizes and multiplies)
-    stacked = layers if use_decode and all(
+    write_at = _row_write_plan(cache_offset, S, cache["k"].shape[3]) if per_row else cache_offset
+    # a decode step or verify block over W8 layers runs the fused W8 kernels
+    # (the prefill, like the JAX module's, dequantizes and multiplies)
+    stacked = layers if (use_decode or use_verify) and all(
         isinstance(layers[k], dict) for k in QUANTIZED_LAYER_KEYS) else None
 
     for li in range(L):
@@ -256,20 +311,23 @@ def forward_hidden(
         if quantized:
             k8, ks = _quantize_kv(k)
             v8, vs = _quantize_kv(v)
-            cache["k"][li, :, :, sl] = k8.transpose(1, 2)
-            cache["v"][li, :, :, sl] = v8.transpose(1, 2)
-            cache["ks"][li, :, :, sl] = ks.transpose(1, 2)
-            cache["vs"][li, :, :, sl] = vs.transpose(1, 2)
+            for name, val in (("k", k8), ("v", v8), ("ks", ks), ("vs", vs)):
+                _write_kv(cache[name], li, val, write_at)
         else:
-            cache["k"][li, :, :, sl] = k.transpose(1, 2).to(cache["k"].dtype)
-            cache["v"][li, :, :, sl] = v.transpose(1, 2).to(cache["v"].dtype)
+            _write_kv(cache["k"], li, k, write_at)
+            _write_kv(cache["v"], li, v, write_at)
         if use_flash:
             attn = flash_attention(q, k, v, causal=True, kv_start=kv_start, kv_end=kv_end)
-        else:
+        elif use_decode:
             attn = gqa_decode_attention(
                 q[:, 0], cache["k"], cache["v"], li, f_start, f_end,
                 cache.get("ks"), cache.get("vs"),
             )[:, None]
+        else:
+            attn = gqa_block_verify_attention(
+                q.contiguous(), cache["k"], cache["v"], li, f_start, f_off,
+                cache.get("ks"), cache.get("vs"),
+            )
         h = _layer_post_attn(cfg, h, lp, attn, stacked, li)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
 
@@ -377,7 +435,7 @@ def forward_greedy(
     attention_mask: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
-    cache_offset: int = 0,
+    cache_offset=0,
     prefill_padding: Optional[str] = None,
     decode_frontier: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -405,7 +463,7 @@ def forward(
     attention_mask: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
-    cache_offset: int = 0,
+    cache_offset=0,
     prefill_padding: Optional[str] = None,
     decode_frontier: bool = False,
     last_logit_only: bool = False,

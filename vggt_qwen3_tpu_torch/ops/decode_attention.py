@@ -1,21 +1,26 @@
 """GQA decode attention over the stacked head-major KV cache: the CUDA
-kernel's wrapper and its plain version.
+kernels' wrappers and their plain versions.
 
 Counterpart of ``vggt_qwen3_tpu/ops/decode_attention.py`` (the Pallas
-``_decode_kernel`` via ``gqa_decode_attention``). One query token per row
-attends to the slots ``[kv_start, kv_end)`` of layer ``li`` of the whole
-stacked cache ``[L, B, NKV, T, D]``. ``cache[li]`` is a view in PyTorch, and
-the kernel reads the layer by pointer offset, so no per-layer copy is made.
+``_decode_kernel``, reached through ``gqa_decode_attention`` and
+``gqa_block_verify_attention``):
+
+- :func:`gqa_decode_attention` (``csrc/decode_attention.cu``): one query
+  token per row attends to the slots ``[kv_start, kv_end)``;
+- :func:`gqa_block_verify_attention` (``csrc/block_verify.cu``): the
+  speculative verify block, S query tokens per row, query j attending to
+  ``[kv_start, kv_off + 1 + j)`` (in-block causality at per-row depths).
+
+Both read layer ``li`` of the whole stacked cache ``[L, B, NKV, T, D]``.
+``cache[li]`` is a view in PyTorch, and the kernels read the layer by
+pointer offset, so no per-layer copy is made.
 
 Numerics (kernel and plain version alike):
 - bf16 cache: f32 QK, scores × D^-0.5, f32 softmax, f32 PV;
 - int8 cache (bf16 per-(token, head) scales ``ks``/``vs`` [L, B, NKV, T]):
   scores × (ks · D^-0.5), the row sum ``l`` taken before ``p`` is multiplied
   by ``vs``, f32 PV over the int8 values;
-- output divided by ``max(l, 1e-20)``.
-
-The speculative block-verify variant (``gqa_block_verify_attention``) waits
-for the serving slice (ROADMAP).
+- output divided by ``max(l, 1e-20)``; a query with no valid slot gives 0.
 """
 
 from __future__ import annotations
@@ -27,10 +32,13 @@ import torch
 
 from . import kernel_build
 
-# Incremented once per kernel launch (never for the plain version).
+# Incremented once per kernel launch (never for the plain versions):
+# ``launches`` for the decode kernel, ``verify_launches`` for block verify.
 launches = 0
+verify_launches = 0
 
-MAX_GROUP = 8  # query heads per kv head the kernel supports
+MAX_GROUP = 8  # query heads per kv head the decode kernel supports
+MAX_VERIFY_ROWS = 128  # S · (NH / NKV) score rows the block-verify kernel supports
 
 
 def gqa_decode_attention_plain(
@@ -133,4 +141,119 @@ def gqa_decode_attention(
     )
     kernel_build.check(rc, "decode_attention")
     launches += 1
+    return out
+
+
+def verify_bounds(kv_start: torch.Tensor, kv_off: torch.Tensor, S: int, T: int):
+    """(start, end0) as the JAX wrapper clamps them: ``start = clip(kv_start,
+    0, T)``, ``end0 = clip(kv_off + 1, 0, T − (S − 1))``, so that query j's
+    end ``end0 + j`` stays within the cache."""
+    start = kv_start.long().clamp(0, T)
+    end0 = (kv_off.long() + 1).clamp(0, T - (S - 1))
+    return start, end0
+
+
+def gqa_block_verify_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: int,
+    kv_start: torch.Tensor, kv_off: torch.Tensor,
+    ks: Optional[torch.Tensor] = None, vs: Optional[torch.Tensor] = None,
+    *, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """q [B, S, NH, D]; k, v [L, B, NKV, T, D]; → [B, S, NH, D] in q.dtype.
+    The decode kernel's numerics with an S axis."""
+    B, S, NH, D = q.shape
+    NKV, T = k.shape[2], k.shape[3]
+    G = NH // NKV
+    if scale is None:
+        scale = D ** -0.5
+    start, end0 = verify_bounds(kv_start, kv_off, S, T)
+    s = torch.einsum("bskgd,bktd->bkgst", q.reshape(B, S, NKV, G, D).float(), k[li].float())
+    if ks is not None:
+        s = s * (ks[li].float()[:, :, None, None, :] * scale)
+    else:
+        s = s * scale
+    pos = torch.arange(T, device=q.device)
+    end = end0[:, None] + torch.arange(S, device=q.device)[None, :]  # [B, S]
+    valid = (pos[None, None, :] >= start[:, None, None]) & (pos[None, None, :] < end[:, :, None])
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    if vs is not None:
+        p = p * vs[li].float()[:, :, None, None, :]
+    pv = torch.einsum("bkgst,bktd->bskgd", p, v[li].float())
+    l = l.permute(0, 3, 1, 2, 4)  # [B, NKV, G, S, 1] → [B, S, NKV, G, 1]
+    return (pv / l.clamp_min(1e-20)).reshape(B, S, NH, D).to(q.dtype)
+
+
+def _verify_lib():
+    fn = kernel_build.load("block_verify").lib.block_verify_attention
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gqa_block_verify_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: int,
+    kv_start: torch.Tensor, kv_off: torch.Tensor,
+    ks: Optional[torch.Tensor] = None, vs: Optional[torch.Tensor] = None,
+    *, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Speculative block-verify attention over the stacked cache: S query
+    tokens per row, query j seeing ``[kv_start, kv_off + 1 + j)``.
+
+    CPU tensors take :func:`gqa_block_verify_attention_plain`; CUDA tensors
+    launch the ``csrc/block_verify.cu`` kernel or raise. The kernel takes
+    bf16 ``q`` [B, S, NH, D], a contiguous bf16 or int8 cache (int8 with
+    bf16 ``ks``/``vs``), D ∈ {64, 128}, S ≤ T and at most
+    ``MAX_VERIFY_ROWS`` score rows S · NH / NKV.
+    """
+    global verify_launches
+    if q.device.type == "cpu":
+        return gqa_block_verify_attention_plain(q, k, v, li, kv_start, kv_off, ks, vs, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"gqa_block_verify_attention: unsupported device {q.device}")
+    what = "gqa_block_verify_attention"
+    B, S, NH, D = q.shape
+    L, Bk, NKV, T, Dk = k.shape
+    quant = k.dtype == torch.int8
+    if tuple(v.shape) != tuple(k.shape) or Bk != B or Dk != D or NH % NKV or not 1 <= S <= T:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if D not in (64, 128) or S * (NH // NKV) > MAX_VERIFY_ROWS:
+        raise ValueError(f"{what} kernel takes D in (64, 128) and S * group <= {MAX_VERIFY_ROWS}")
+    if not 0 <= int(li) < L:
+        raise ValueError(f"{what}: layer {li} outside [0, {L})")
+    if q.dtype != torch.bfloat16 or k.dtype not in (torch.bfloat16, torch.int8) or v.dtype != k.dtype:
+        raise ValueError(f"{what} kernel takes bf16 q and a bf16 or int8 cache, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if quant != (ks is not None) or quant != (vs is not None):
+        raise ValueError(f"{what}: ks/vs go with an int8 cache and only with it")
+    for x in [q, k, v] + ([ks, vs] if quant else []):
+        if x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous and on one device")
+    if quant and (tuple(ks.shape) != (L, B, NKV, T) or tuple(vs.shape) != (L, B, NKV, T)
+                  or ks.dtype != torch.bfloat16 or vs.dtype != torch.bfloat16):
+        raise ValueError(f"{what}: ks/vs must be bf16 [L, B, NKV, T]")
+    if scale is None:
+        scale = D ** -0.5
+    start = kv_start.to(device=q.device, dtype=torch.int32).contiguous()
+    off = kv_off.to(device=q.device, dtype=torch.int32).contiguous()
+    if start.shape != (B,) or off.shape != (B,):
+        raise ValueError(f"{what}: kv_start and kv_off must have shape (B,)")
+
+    def layer_ptr(x):  # base address of layer li
+        return x.data_ptr() + int(li) * x.stride(0) * x.element_size()
+
+    out = torch.empty((B, S, NH, D), dtype=torch.bfloat16, device=q.device)
+    rc = _verify_lib()(
+        q.data_ptr(), layer_ptr(k), layer_ptr(v),
+        layer_ptr(ks) if quant else None, layer_ptr(vs) if quant else None,
+        out.data_ptr(), start.data_ptr(), off.data_ptr(),
+        B, S, NH, NKV, T, D, int(quant), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernel_build.check(rc, "block_verify_attention")
+    verify_launches += 1
     return out
