@@ -6,10 +6,10 @@
 Run from the root of a checkout. It:
 
 1. prints the card (name, ``nvidia-smi`` power limit);
-2. builds the four CUDA sources of the port from ``vggt_qwen3_tpu_torch/csrc``
-   (flash forward, decode attention, block-verify attention, the four W8
-   decode kernels) with ``nvcc`` for sm_90a, in parallel, and prints the
-   ptxas report;
+2. builds the five CUDA sources of the port from ``vggt_qwen3_tpu_torch/csrc``
+   (flash forward, the two flash backward kernels, decode attention,
+   block-verify attention, the four W8 decode kernels) with ``nvcc`` for
+   sm_90a, in parallel, and prints the ptxas report;
 3. holds each kernel against its plain PyTorch version at its main path's
    shapes (``utils.agreement``, tol 2e-2 scaled to the reference: every
    element within 2e-2·max|ref| + 2e-2·|ref|, and ‖err‖₂ ≤ 5e-3·‖ref‖₂; rows
@@ -26,19 +26,28 @@ Run from the root of a checkout. It:
    The block-verify kernel runs at the ARKit verify shape (q [4, 7, 32, 128]
    over [36, 4, 8, 832, 128]) with bf16 and int8 caches, ragged starts and
    offsets, a row whose first queries see no slot (exactly 0) and 1e4 in
-   every slot no query sees;
+   every slot no query sees. The flash backward kernels (dq; dk/dv) and the
+   forward's lse output run at the training shapes — VGGT frame
+   [16, 1029, 16, 64] and global [2, 8232, 16, 64] — and at a causal,
+   left-padded GQA shape [2, 512, 32/8, 128], with 1e4 in every K/V slot
+   outside a row's frontier; query rows with no key and keys no query sees
+   get exactly 0; the library time there is SDPA's backward kernels;
 4. holds small-width models run on the card (kernels) against the same runs
    on the CPU (plain versions): bf16; W8 with an int8 cache; and
    speculative decoding under the action-JSON constraint with an int8 cache
    (tokens equal on every row whose every step has a top-2 gap above
-   1e-4·max|logit|);
+   1e-4·max|logit|); and the training step (bf16, the tower unfrozen, 4 micro
+   steps at grad_accum 2: losses, grad norms, the vision gradients, the
+   updates), then saves and restores that train state and checks the next
+   steps;
 5. drives the QA path at full width — Qwen3-4B, VGGT-1B, the perceiver_small
    projector, 8 samples × 8 views × 448², random weights from ``--seed`` —
    through ``inference.qa.run_inference`` with the bf16 cache (the CLI
    default, "the main path") and with the int8 cache, with every launch
    counter set to 0 just before and read just after each run, and repeats
    each run to check the tokens are identical; then once with W8 weights
-   (``quantize=True``);
+   (``quantize=True``), and once more with qkvo LoRA adapters on the W8
+   weights (the fused MLP still runs; QKV and WO take the plain product);
 6. drives the W8 decode path at full width through
    ``vggt_qwen3_tpu_torch.bench`` (Qwen3-4B, W8 weights, int8 cache,
    B=368, prompt 32, 128 greedy steps): tokens/s, the decode step, peak
@@ -63,7 +72,19 @@ Run from the root of a checkout. It:
    on the card); the same verify block with the kernel holds each layer's
    kernel call to the plain version on its inputs; then a profile of one
    speculative run cut at 128 new tokens;
-8. prints the kernels line, the card line and, last, the ok line.
+8. drives the SFT training path at full width through the trainer's entry
+   points on the stage of ``configs/stage1_3d.yaml`` (``train_stage``: 6.18 B
+   params, LoRA r16 on qkvo, text layers 0-3 frozen; 2 rows a micro step,
+   grad_accum 2, a 4-step schedule; ScanQA/SQA3D placeholder records with
+   seeded views, view dropout 0.3, Perceiver dropout 0.1): the recipe as
+   shipped (tower frozen) for 2 micro steps, then ``freeze_vision`` false for
+   4 (2 updates), asserting the launches of every micro step (72 flash
+   forwards frozen; 144 forwards, 72 dq and 72 dk/dv unfrozen — the forward
+   and its recompute), finite losses, frozen leaves bit-identical, and every
+   trainable leaf changed unless its update is under half a bf16 ulp
+   everywhere; micro-step wall time, tokens/s, peak memory and a profile of
+   one micro step with its update;
+9. prints the kernels line, the card line and, last, the ok line.
 
 Any failure raises and the script exits non-zero. Without a CUDA device, or
 outside a checkout of the repo, it exits non-zero before printing a result.
@@ -92,6 +113,10 @@ SCHEMA_KEYS = ["action", "scene", "center", "normal", "extent"]
 DRAFT_K = 6  # generate_batch's default verify block: k + 1 = 7 queries
 ARKIT_NEW_TOKENS = 340  # every constrained object closes within 340 byte tokens
 ARKIT_PROFILE_TOKENS = 128
+BWD_SOURCE = "vggt_qwen3_tpu_torch/csrc/flash_bwd.cu"
+BWD_REPLACES = {"flash_bwd_dq": "vggt_qwen3_tpu/ops/flash_attention.py:363",
+                "flash_bwd_dkv": "vggt_qwen3_tpu/ops/flash_attention.py:435"}
+TRAIN_BATCH, TRAIN_GRAD_ACCUM, TRAIN_MAX_STEPS = 2, 2, 4
 W8_SOURCE = "vggt_qwen3_tpu_torch/csrc/decode_matmul.cu"
 W8_REPLACES = {
     "fused_qkv_w8": "vggt_qwen3_tpu/ops/decode_matmul.py:180",
@@ -122,6 +147,56 @@ def full_stage():
         num_views=8, image_size=448, max_length=512, view_dropout=0.3,
     )
     return StageConfig(model=model, data=data, train=TrainConfig())
+
+
+def train_stage():
+    """The stage ``configs/stage1_3d.yaml`` gives the trainer, built from the
+    presets (LoRA r16 on qkvo, text layers 0-3 frozen, the recipe's optimizer),
+    reduced for the chip check: 2 rows a micro step (the recipe has 6),
+    ``grad_accum`` 2 (32) and a schedule horizon of 4 micro steps (30,000), so
+    that the second update runs at the peak learning rate (the first runs at
+    the warmup's 0)."""
+    import dataclasses
+
+    from vggt_qwen3_tpu_torch.config import LoRAConfig, TrainConfig
+
+    return dataclasses.replace(
+        full_stage(),
+        train=TrainConfig(precision="bf16", optimizer="adamw", lr=5e-6, proj_lr=1e-4, weight_decay=0.1,
+                          warmup_ratio=0.03, batch_size_per_device=TRAIN_BATCH, grad_accum=TRAIN_GRAD_ACCUM,
+                          max_steps=TRAIN_MAX_STEPS, save_every_steps=1500, eval_every_steps=3000,
+                          log_every_steps=20, gradient_clip=1.0, seed=42),
+        lora=LoRAConfig(enable=True, rank=16, alpha=32, dropout=0.05,
+                        target_modules=("q_proj", "k_proj", "v_proj", "o_proj")),
+        freeze_text_layers=(0, 1, 2, 3),
+    )
+
+
+class SeededViews:
+    """The records of a placeholder split with seeded uint8 views of the
+    placeholders' size in place of their image files (no image decoder
+    needed), padded to ``num_views`` by repeating the last view as the
+    port's reader does."""
+
+    def __init__(self, path, num_views: int, seed: int, side: int = 96):
+        self.records = [json.loads(line) for line in Path(path).read_text().splitlines() if line.strip()]
+        self.num_views, self.seed, self.side = num_views, seed, side
+
+    def __len__(self):
+        return len(self.records)
+
+    def __getitem__(self, i):
+        r = self.records[i]
+        rng = np.random.default_rng([self.seed, i])
+        n = min(len(r["images"]), self.num_views)
+        views = [rng.integers(0, 256, (self.side, self.side, 3), dtype=np.uint8) for _ in range(n)]
+        views += [views[-1]] * (self.num_views - n)
+        return dict(images=views, geom_token=r.get("geom_token"), question=r["question"], answer=r["answer"],
+                    task=r.get("task"), scene_id=r.get("scene_id"))
+
+
+def seeded_datasets(stage, seed: int):
+    return {name: SeededViews(REPO / glob, stage.data.num_views, seed) for name, glob in stage.data.datasets.items()}
 
 
 def arkit_stage():
@@ -273,6 +348,132 @@ def check_flash(name, B, S, T, NH, NKV, D, *, causal, starts, gen):
                bound_ms=bms, bound_by=by)
     print(f"flash_fwd {json.dumps(out)}", flush=True)
     return out
+
+
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """Device time of one call of ``fn`` by kernel name (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    if not by:
+        raise AssertionError("the profiler saw no device time")
+    return by
+
+
+def check_flash_backward(name, B, S, NH, NKV, D, *, causal, starts, ends, gen):
+    """Kernels 8 and 9 (and kernel 1's lse output) against their plain
+    versions at one shape (S = T), with 1e4 in every K/V slot outside a row's
+    frontier; query rows with no valid key must get exactly 0. The plain
+    versions materialise [S, T] f32 scores, so they run one kv head (its GQA
+    group of query heads) at a time. Returns the measurements of dq and
+    dk/dv: device ms by kernel, the plain backward's and SDPA's backward
+    kernels' device ms (each the whole backward: dq, dk and dv together)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+
+    G = NH // NKV
+    q = torch.randn(B, S, NH, D, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(B, S, NKV, D, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(B, S, NKV, D, device="cuda", generator=gen).bfloat16()
+    d_out = torch.randn(B, S, NH, D, device="cuda", generator=gen).bfloat16()
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    end = torch.tensor(ends, dtype=torch.int32, device="cuda")
+    pos = torch.arange(S, device="cuda")
+    outside = (pos[None] < start[:, None]) | (pos[None] >= end[:, None])  # [B, S]
+    k.masked_fill_(outside[:, :, None, None], 1e4)
+    v.masked_fill_(outside[:, :, None, None], 1e4)
+    kw = dict(causal=causal, kv_start=start, kv_end=end)
+
+    out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, start, end, out, lse, d_out, causal=causal)
+    torch.cuda.synchronize()
+
+    def plain(with_fwd=False):
+        res = []
+        for h in range(NKV):
+            hs = slice(h * G, (h + 1) * G)
+            args = (q[:, :, hs], k[:, :, h:h + 1], v[:, :, h:h + 1])
+            if with_fwd:
+                res.append(fa.flash_attention_plain_with_lse(*args, **kw))
+            else:
+                res.append(fa.flash_attention_backward_plain(*args, start, end, out[:, :, hs], lse[:, hs],
+                                                             d_out[:, :, hs], causal=causal))
+        return res
+
+    ref_lse = torch.cat([r[1] for r in plain(with_fwd=True)], dim=1)
+    live = ref_lse > -1e29
+    lse_err = (lse[live] - ref_lse[live]).abs().max().item()
+    if lse_err > 1e-3 or not (lse[~live] == -1e30).all():
+        raise AssertionError(f"flash_fwd lse[{name}]: max abs err {lse_err}, or a dead row not -1e30")
+    ref = plain()
+    ref_dq = torch.cat([r[0] for r in ref], dim=2)
+    ref_dk = torch.cat([r[1] for r in ref], dim=2)
+    ref_dv = torch.cat([r[2] for r in ref], dim=2)
+    del ref
+    agree = {n: held_to_plain(f"flash_bwd {n}[{name}]", a, r)
+             for n, a, r in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv))}
+    del ref_dq, ref_dk, ref_dv
+    dead = ~live.any(1)  # [B, S]: no head of the row sees a key
+    if dead.any() and dq[dead].abs().max().item() != 0.0:
+        raise AssertionError(f"flash_bwd dq[{name}]: rows with no valid key are not 0")
+    if outside.any() and max(dk[outside].abs().max().item(), dv[outside].abs().max().item()) != 0.0:
+        raise AssertionError(f"flash_bwd dk/dv[{name}]: keys outside the frontier are not 0")
+
+    by = device_ms_by_kernel(lambda: fa.flash_attention_backward(q, k, v, start, end, out, lse, d_out,
+                                                                 causal=causal), iters=5)
+    dq_ms = sum(t for n, t in by.items() if "flash_bwd_dq" in n)
+    dkv_ms = sum(t for n, t in by.items() if "flash_bwd_dkv" in n)
+    delta_ms = sum(by.values()) - dq_ms - dkv_ms
+    call_ms = cuda_ms(lambda: fa.flash_attention_backward(q, k, v, start, end, out, lse, d_out, causal=causal),
+                      iters=5)
+    fwd_ms = device_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=5)
+    fwd_lse_ms = device_ms(lambda: fa.flash_attention_with_lse(q, k, v, **kw), iters=5)
+    plain_ms = device_ms(plain, iters=1)
+    # SDPA's backward kernels alone: the graph of one forward, differentiated repeatedly
+    q_, k_, v_ = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    mask = (~outside)[:, None, None, :]
+    if causal:
+        mask = mask & (pos[None, :] <= pos[:, None])
+    o_ = F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask if (causal or outside.any()) else None,
+                                        enable_gqa=NH != NKV)
+    g_ = d_out.transpose(1, 2)
+    library_ms = device_ms(lambda: torch.autograd.grad(o_, (q_, k_, v_), g_, retain_graph=True), iters=5)
+    del o_, q_, k_, v_
+    if causal:
+        pairs = sum(sum(max(0, min(i + 1, e) - s) for i in range(S)) for s, e in zip(starts, ends))
+    else:
+        pairs = sum(S * (e - s) for s, e in zip(starts, ends))
+    qbytes, kbytes, stat = 2 * B * S * NH * D, 2 * B * S * NKV * D, 4 * B * NH * S
+    dq_bound, dq_by = bound_ms(3 * qbytes + 2 * kbytes + 2 * stat, 6 * NH * D * pairs)
+    dkv_bound, dkv_by = bound_ms(2 * qbytes + 4 * kbytes + 2 * stat, 8 * NH * D * pairs)
+    shape = f"{name} q[{B},{S},{NH},{D}] kv[{B},{S},{NKV},{D}] causal={causal}"
+    res = {
+        "flash_bwd_dq": dict(shape=shape, **agree["dq"], ms=dq_ms, call_ms=call_ms, delta_ms=delta_ms,
+                             plain_ms=plain_ms, library_ms=library_ms, bound_ms=dq_bound, bound_by=dq_by),
+        "flash_bwd_dkv": dict(shape=shape, **{f"dk_{a}": b for a, b in agree["dk"].items()},
+                              **{f"dv_{a}": b for a, b in agree["dv"].items()},
+                              max_abs_err=max(agree["dk"]["max_abs_err"], agree["dv"]["max_abs_err"]),
+                              ms=dkv_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=dkv_bound,
+                              bound_by=dkv_by),
+        "flash_fwd_lse": dict(shape=shape, lse_max_abs_err=lse_err, ms_with_lse=fwd_lse_ms, ms_without=fwd_ms),
+    }
+    for n, r in res.items():
+        print(f"{n} {json.dumps(r)}", flush=True)
+    del q, k, v, d_out, out, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return res
 
 
 def check_decode(name, L, B, NH, NKV, T, D, li, starts, *, quant, gen):
@@ -704,6 +905,280 @@ def reference_check_speculative(seed: int):
         raise AssertionError("speculative reference check: card and CPU differ on a decisive row, or none is")
 
 
+def _fingerprint(t):
+    """An exact fingerprint of a tensor's bits: (sum, sum of squares) of its
+    16-bit words as int64 — any update of an element changes it."""
+    import torch
+
+    w = t.detach().contiguous().view(torch.int16).to(torch.int64)
+    return int(w.sum()), int((w * w).sum())
+
+
+def _small_train_stage():
+    """A small-width stage for the card-vs-CPU training check: VGGT head dim
+    64, so the flash kernels run on the card; LoRA on qkvo with layer 0
+    frozen; the tower unfrozen; Perceiver dropout off (the two devices' random
+    streams differ)."""
+    import dataclasses
+
+    from vggt_qwen3_tpu_torch.config import PerceiverConfig, Qwen3Config, VGGTConfig
+
+    st = train_stage()
+    return dataclasses.replace(
+        st,
+        model=dataclasses.replace(
+            st.model,
+            text=Qwen3Config(vocab_size=1024, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
+                             head_dim=64, intermediate_size=512),
+            vision=VGGTConfig(img_size=112, embed_dim=128, num_layers=2, num_heads=2, patch_depth=2),
+            projector=PerceiverConfig(latent_dim=128, num_latents=16, num_heads=4, num_layers=2, ffn_dim=256,
+                                      dropout=0.0),
+            num_vis_tokens=16, geom_tokens=2, freeze_vision=False),
+        data=dataclasses.replace(st.data, image_size=112, num_views=2, max_length=96),
+        train=dataclasses.replace(st.train, lr=1e-4, proj_lr=1e-3),
+        lora=dataclasses.replace(st.lora, rank=4), freeze_text_layers=(0,),
+    )
+
+
+def reference_check_train(seed: int):
+    """The training step at small width, bf16, the tower unfrozen: the card
+    (kernels 1, 8, 9) against the CPU (their plain versions), from the same
+    weights and batches, 4 micro steps (2 updates at grad_accum 2: the first
+    runs at the warmup's learning rate 0, the second at the peak). Compared:
+    loss (rel 1e-2) and grad_norm (rel 2e-2) at every micro step; each vision
+    leaf's first-micro-step gradient (‖Δ‖₂ ≤ 0.05·‖ref‖₂); the parameter
+    updates after the 2 updates (‖Δcard − Δcpu‖₂ ≤ 0.1·‖Δcpu‖₂ over the
+    trainable leaves, no element more than three learning-rate steps apart);
+    frozen leaves bit-identical. The tolerances are bf16's: both sides round every
+    intermediate to bf16 in their own summation orders through 6 blocks and
+    back. Then the card's state is saved and restored: the restored optimizer
+    state equals the saved one bit for bit, and the next two micro steps give
+    the live run's losses exactly and its update to 1e-3."""
+    import shutil
+
+    import torch
+
+    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+    from vggt_qwen3_tpu_torch.train import checkpoint as ckpt
+    from vggt_qwen3_tpu_torch.train import sft, trainer
+
+    st = _small_train_stage()
+    tok = load_tokenizer(None)
+    img_id = tok.convert_tokens_to_ids("<image>")
+    loader = sft.build_data(st, tok, datasets=seeded_datasets(st, seed))
+    batches = [next(loader) for _ in range(6)]
+    cpu, cpu_tx = trainer.init_train_state(torch.Generator().manual_seed(seed), st, dtype="bfloat16")
+    card_params = _to_device(cpu.params, "cuda")
+    card_tx = trainer.make_tx(st, card_params)
+    card = trainer.TrainState(params=card_params, opt_state=card_tx.init(card_params), step=0)
+    init = {n: t.clone() for n, t in trainer.named_leaves(cpu.params)}
+
+    def run(state, tx, dev, steps):
+        grads, metrics = {}, []
+        real = tx.update
+
+        def capture(g, opt_state, params):
+            if not grads:
+                grads.update({n: t.float().cpu() for n, t in g.items() if n.startswith("vision/") and t is not None})
+            return real(g, opt_state, params)
+
+        tx.update = capture
+        try:
+            step = trainer.make_train_step(st, tx, img_id, has_geom=True)
+            for s in steps:
+                state, m = step(state, sft.to_device(batches[s], dev), None)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        finally:
+            tx.update = real
+        return state, grads, metrics
+
+    n0 = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    card, card_g, card_m = run(card, card_tx, "cuda", range(4))
+    torch.cuda.synchronize()
+    card_launches = (fa.launches - n0[0], fa.dq_launches - n0[1], fa.dkv_launches - n0[2])
+    cpu, cpu_g, cpu_m = run(cpu, cpu_tx, "cpu", range(4))
+    vc = st.model.vision
+    blocks = vc.patch_depth + 2 * vc.num_layers
+    if card_launches != (4 * 2 * blocks, 4 * blocks, 4 * blocks):
+        raise AssertionError(f"training reference check: launches (fwd, dq, dkv) {card_launches}")
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card_m, cpu_m))
+    norm_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(card_m, cpu_m))
+    grad_rel = {n: ((card_g[n] - cpu_g[n]).norm() / cpu_g[n].norm().clamp_min(1e-30)).item() for n in cpu_g}
+    if set(card_g) != set(cpu_g) or len(cpu_g) == 0:
+        raise AssertionError("training reference check: vision gradients missing on a side")
+    num = den = 0.0
+    worst_steps = 0.0
+    lr = {"base": st.train.lr, "proj": st.train.proj_lr}
+    cpu_leaves = dict(trainer.named_leaves(cpu.params))
+    for n, p in trainer.named_leaves(card.params):
+        label = card_tx.labels[n]
+        got, ref, p0 = p.float().cpu(), cpu_leaves[n].float(), init[n].float()
+        if label == "frozen" or (n.startswith("text/layers/lora/")):
+            frozen_part = (got if label == "frozen" else got[0]) - (p0 if label == "frozen" else p0[0])
+            if frozen_part.abs().max().item() != 0.0:
+                raise AssertionError(f"training reference check: frozen leaf {n} changed on the card")
+        if label == "frozen":
+            continue
+        num += ((got - p0) - (ref - p0)).norm().item() ** 2
+        den += (ref - p0).norm().item() ** 2
+        worst_steps = max(worst_steps, (got - ref).abs().max().item() / lr[label])
+    upd_rel = (num / max(den, 1e-30)) ** 0.5
+    worst_grad = max(grad_rel.items(), key=lambda kv: kv[1])
+    print(f"training reference check (small width, bf16, tower unfrozen, card vs CPU): loss rel {loss_rel:.3e}, "
+          f"grad_norm rel {norm_rel:.3e}, vision gradients worst rel {worst_grad[1]:.3e} ({worst_grad[0]}, "
+          f"{len(grad_rel)} leaves), updates rel {upd_rel:.3e}, largest element gap {worst_steps:.3f} steps; "
+          f"card launches (fwd, dq, dkv) {card_launches}; losses card {[round(m[0], 5) for m in card_m]} "
+          f"CPU {[round(m[0], 5) for m in cpu_m]}", flush=True)
+    if not (loss_rel <= 1e-2 and norm_rel <= 2e-2 and worst_grad[1] <= 5e-2 and upd_rel <= 0.1
+            and worst_steps <= 2.0 * 1.5):
+        raise AssertionError("training reference check: card and CPU disagree")
+
+    # save, restore, and the same next two micro steps
+    out = REPO / "ckpts" / "chip_smoke_train"
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        ckpt.save(card, out / "step_4")
+        restored = ckpt.restore(ckpt.latest_step_dir(out), "cuda")
+        for key in ("mu", "nu", "acc"):
+            a, b = card.opt_state[key], restored.opt_state[key]
+            if a.keys() != b.keys() or not all(torch.equal(a[n], b[n]) for n in a):
+                raise AssertionError(f"restore: optimizer state {key} differs")
+        if (restored.step, restored.opt_state["gradient_step"], restored.opt_state["mini_step"]) != \
+                (card.step, card.opt_state["gradient_step"], card.opt_state["mini_step"]):
+            raise AssertionError("restore: counters differ")
+        before = {n: t.float().clone() for n, t in trainer.named_leaves(card.params)}
+        live, _, live_m = run(card, card_tx, "cuda", range(4, 6))
+        again, _, again_m = run(restored, trainer.make_tx(st, restored.params), "cuda", range(4, 6))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    num = den = 0.0
+    for (n, a), (_, b) in zip(trainer.named_leaves(live.params), trainer.named_leaves(again.params)):
+        num += (a.float() - b.float()).norm().item() ** 2
+        den += (a.float() - before[n]).norm().item() ** 2
+    rel = (num / max(den, 1e-30)) ** 0.5
+    print(f"training restore check: next losses live {live_m} restored {again_m}; updates rel {rel:.3e}", flush=True)
+    if [m[0] for m in live_m] != [m[0] for m in again_m] or not rel <= 1e-3 or den == 0.0:
+        raise AssertionError("restore: the restored state does not give the live run's next steps")
+
+
+def train_path(args):
+    """The full-width SFT path on the card: the stage of configs/stage1_3d.yaml
+    (train_stage) through the trainer's entry points (init_train_state,
+    sft.build_data over the ScanQA/SQA3D placeholder records with seeded
+    views, make_train_step, step_generator): (a) the recipe as shipped, the
+    tower frozen, 2 micro steps; (b) freeze_vision false, 4 micro steps (2
+    updates). Launch counters are set to 0 just before and read just after
+    each micro step and each run. Returns (b)'s per-run counts and numbers."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+    from vggt_qwen3_tpu_torch.train import sft, trainer
+
+    tok = load_tokenizer(None)
+    img_id = tok.convert_tokens_to_ids("<image>")
+    base = train_stage()
+    vc = base.model.vision
+    blocks = vc.patch_depth + 2 * vc.num_layers  # 72 attentions a forward
+    result = {}
+    for frozen, n_micro in ((True, 2), (False, 2 * TRAIN_GRAD_ACCUM)):
+        st = dataclasses.replace(base, model=dataclasses.replace(base.model, freeze_vision=frozen))
+        what = "recipe as shipped (tower frozen)" if frozen else "freeze_vision false"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state, tx = trainer.init_train_state(torch.Generator(device="cuda").manual_seed(args.seed), st,
+                                             dtype=st.model.dtype)
+        torch.cuda.synchronize()
+        leaves = dict(trainer.named_leaves(state.params))
+        n_params = sum(p.numel() for p in leaves.values())
+        n_train = sum(p.numel() for n, p in leaves.items() if tx.labels[n] != "frozen")
+        print(f"training ({what}): random init of {n_params / 1e9:.3f} B params ({n_train / 1e9:.3f} B trainable) "
+              f"in {time.perf_counter() - t:.1f} s, memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+        prints = {n: _fingerprint(p) for n, p in leaves.items()}
+        lora_frozen = {n: [_fingerprint(p[i]) for i in st.freeze_text_layers]
+                       for n, p in leaves.items() if n.startswith("text/layers/lora/")}
+        min_abs = {n: p.abs().min().item() for n, p in leaves.items() if tx.labels[n] != "frozen"}
+        loader = sft.build_data(st, tok, datasets=seeded_datasets(st, args.seed))
+        step_fn = trainer.make_train_step(st, tx, img_id, has_geom=True)
+        walls, per_step, metrics, tokens = [], [], [], []
+        run_counts = dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0)
+        for s in range(n_micro):
+            batch = sft.to_device(next(loader), "cuda")
+            gen = trainer.step_generator(st.train.seed + 1, s, "cuda")
+            torch.cuda.synchronize()
+            fa.launches = fa.dq_launches = fa.dkv_launches = 0
+            t = time.perf_counter()
+            state, m = step_fn(state, batch, gen)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+            per_step.append(counts)
+            for k, c in zip(run_counts, counts):
+                run_counts[k] += c
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            tokens.append((int(batch["input_ids"].numel()), int(batch["attention_mask"].sum())))
+        want = (blocks, 0, 0) if frozen else (2 * blocks, blocks, blocks)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = walls[1:] or walls
+        mean = sum(steady) / len(steady)
+        print(f"training ({what}): {n_micro} micro steps of {TRAIN_BATCH} rows x {st.data.num_views} views "
+              f"x {st.data.image_size}^2, text {tokens[0][0] // TRAIN_BATCH} tokens a row; walls "
+              f"{[round(w, 3) for w in walls]} s; launches a micro step (flash fwd, dq, dkv) {per_step}; "
+              f"loss/grad_norm {metrics}; peak memory {peak:.2f} GiB", flush=True)
+        if any(c != want for c in per_step):
+            raise AssertionError(f"training ({what}): launches a micro step {per_step}, expected {want}")
+        if not all(np.isfinite(x) for m in metrics for x in m):
+            raise AssertionError(f"training ({what}): loss or grad_norm not finite: {metrics}")
+        if state.opt_state["gradient_step"] != n_micro // TRAIN_GRAD_ACCUM:
+            raise AssertionError(f"training ({what}): {state.opt_state['gradient_step']} updates")
+        leaves = dict(trainer.named_leaves(state.params))
+        for n, p in leaves.items():
+            if tx.labels[n] == "frozen" and _fingerprint(p) != prints[n]:
+                raise AssertionError(f"training ({what}): frozen leaf {n} changed")
+        for n, fps in lora_frozen.items():
+            if [_fingerprint(leaves[n][i]) for i in st.freeze_text_layers] != fps:
+                raise AssertionError(f"training ({what}): the adapters of a frozen layer changed ({n})")
+        if not frozen:
+            # a trainable leaf may stay unchanged only where its update is under half a bf16
+            # ulp everywhere: no gradient reached it (LoRA's A while B is still 0: its step
+            # is the weight decay alone), or no element is small enough for a step of the
+            # group's size (|p| > 768·lr puts 1.5·lr under half an ulp: norm weights, LayerScale)
+            lr = {"base": st.train.lr, "proj": st.train.proj_lr}
+            moved = [n for n, p in leaves.items() if tx.labels[n] != "frozen" and _fingerprint(p) != prints[n]]
+            still = [n for n in min_abs if n not in moved]
+            no_grad = [n for n in still if not state.opt_state["mu"][n].any()]
+            bad = [n for n in still if n not in no_grad and min_abs[n] <= 768 * lr[tx.labels[n]]]
+            print(f"training ({what}): {len(moved)} of {len(min_abs)} trainable leaves changed; unchanged with no "
+                  f"gradient yet: {no_grad}; unchanged, every element's step under half a bf16 ulp: "
+                  f"{[n for n in still if n not in no_grad]}", flush=True)
+            if bad:
+                raise AssertionError(f"training ({what}): trainable leaves unchanged after the updates: {bad}")
+            result.update(counts=run_counts, per_step=per_step[0], walls=walls, mean_s=mean, peak_gib=peak,
+                          tokens_per_s=TRAIN_BATCH * (tokens[0][0] // TRAIN_BATCH) / mean,
+                          valid_tokens_per_s=sum(v for _, v in tokens[1:] or tokens) / sum(steady),
+                          views_per_s=TRAIN_BATCH * st.data.num_views / mean)
+            print(f"training ({what}): micro step {mean:.3f} s (mean of the synchronised walls after the first), "
+                  f"{result['tokens_per_s']:.1f} text tokens/s padded, {result['valid_tokens_per_s']:.1f} unpadded, "
+                  f"{result['views_per_s']:.2f} views/s; launches in the run {json.dumps(run_counts)}", flush=True)
+            # one more update's pair of micro steps: the second, which runs the optimizer, under the profiler
+            state, _ = step_fn(state, sft.to_device(next(loader), "cuda"),
+                               trainer.step_generator(st.train.seed + 1, n_micro, "cuda"))
+            batch = sft.to_device(next(loader), "cuda")
+            gen = trainer.step_generator(st.train.seed + 1, n_micro + 1, "cuda")
+            profile_breakdown("training micro step (freeze_vision false, with the update)",
+                              lambda: step_fn(state, batch, gen), unprofiled_s=mean, range_family="optimizer")
+        del state, tx, leaves, loader, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main_path(args):
     """Full-width QA path through run_inference, bf16 then int8 cache."""
     import torch
@@ -781,6 +1256,22 @@ def main_path(args):
         if len(res_w8) != len(samples) or any(dm.launches[k] != L * steps for k in
                                               ("fused_qkv_w8", "fused_linear_w8", "fused_mlp_w8")):
             raise AssertionError(f"W8 QA run: {len(res_w8)} records, launches {dm.launches}, {steps} steps")
+        # a trained stage-1 tree carries qkvo LoRA adapters: served W8, only the MLP has no adapter to keep
+        # its fused kernel from running (QKV and WO dequantize and multiply, as in the JAX module)
+        lora_text = qwen3.add_lora(params["text"], stage.model.text, train_stage().lora,
+                                   torch.Generator(device="cuda").manual_seed(1))
+        dm.launches.update(dict.fromkeys(dm.launches, 0))
+        da.launches = 0
+        res_lora = qa.run_inference(dict(params, text=lora_text), stage, tok, samples,
+                                    max_new_tokens=args.max_new_tokens, batch_size=8, kv_dtype="int8",
+                                    quantize=True, verbose=False, device="cuda")
+        steps = da.launches // L
+        want = {"fused_qkv_w8": 0, "fused_linear_w8": 0, "fused_mlp_w8": L * steps}
+        print(f"main path W8 with qkvo LoRA: decode steps {steps}, W8 launches {dm.launches}", flush=True)
+        if len(res_lora) != len(samples) or not steps or any(dm.launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"W8 QA run with LoRA: {len(res_lora)} records, launches {dm.launches}, "
+                                 f"expected {want}")
+        del lora_text
     finally:
         qa.generate_batch = real_generate_batch
 
@@ -1071,11 +1562,12 @@ def _parses_to_schema(text: str) -> bool:
         return False
 
 
-def profile_breakdown(label: str, run, unprofiled_s: float):
+def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None):
     """One more run of a main-path phase under torch.profiler: device time by
     kernel family and by kernel. The profiler slows the host, so the idle
     share is also given against ``unprofiled_s``, the same run's wall time
-    without it."""
+    without it. With ``range_family``, the kernels launched by ops inside the
+    ``record_function`` range of that name count to that family."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1085,10 +1577,16 @@ def profile_breakdown(label: str, run, unprofiled_s: float):
         run()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t) * 1e6
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    events = prof.events()
+    by_name, ranged = {}, {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:  # a range's span is no kernel
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        elif range_family is not None and e.kernels and _in_range(e, range_family):
+            for k in e.kernels:
+                ranged[k.name] = ranged.get(k.name, 0.0) + k.duration
+    if range_family is not None and not ranged:
+        print(f"profile {label}: no kernel was launched inside the {range_family!r} range", flush=True)
     busy = sum(by_name.values())
     if busy <= 0:
         print(f"profile {label}: the profiler saw no device time", flush=True)
@@ -1098,6 +1596,10 @@ def profile_breakdown(label: str, run, unprofiled_s: float):
         n = name.lower()
         if "flash_fwd_kernel" in n:
             return "flash_fwd (ours)"
+        if "flash_bwd_dq_kernel" in n:
+            return "flash_bwd_dq (ours)"
+        if "flash_bwd_dkv_kernel" in n:
+            return "flash_bwd_dkv (ours)"
         if "decode_kernel" in n:
             return "decode_attention (ours)"
         if "verify_kernel" in n:
@@ -1112,6 +1614,9 @@ def profile_breakdown(label: str, run, unprofiled_s: float):
 
     fam = {}
     for n, us in by_name.items():
+        if n in ranged:
+            fam[range_family] = fam.get(range_family, 0.0) + ranged[n]
+            us -= ranged[n]
         fam[family(n)] = fam.get(family(n), 0.0) + us
     print(f"profile {label}: device busy {busy / 1e6:.3f} s; wall {wall_us / 1e6:.3f} s profiled "
           f"(idle share {max(0.0, 1 - busy / wall_us):.3f}), {unprofiled_s:.3f} s unprofiled "
@@ -1120,6 +1625,15 @@ def profile_breakdown(label: str, run, unprofiled_s: float):
         print(f"profile {label} family: {f_name}: {us / 1e3:.1f} ms ({us / busy:.3f})", flush=True)
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"profile {label} kernel: {n[:90]}: {us / 1e3:.1f} ms ({us / busy:.3f})", flush=True)
+
+
+def _in_range(event, name: str) -> bool:
+    """Whether a profiled host op runs inside a ``record_function`` range ``name``."""
+    while event is not None:
+        if event.name == name:
+            return True
+        event = event.cpu_parent
+    return False
 
 
 def _to_device(tree, dev):
@@ -1166,7 +1680,7 @@ def main(argv=None) -> int:
     from vggt_qwen3_tpu_torch.inference.batching import max_prompt_len
     from vggt_qwen3_tpu_torch.ops import kernel_build
 
-    libs = kernel_build.build(["flash_fwd", "decode_attention", "block_verify", "decode_matmul"])
+    libs = kernel_build.build(["flash_fwd", "flash_bwd", "decode_attention", "block_verify", "decode_matmul"])
     for kl in libs:
         print(f"built {kl.name} in {kl.build_seconds:.1f} s -> {kl.path.name}", flush=True)
         for line in kl.ptxas_log.splitlines():
@@ -1220,10 +1734,22 @@ def main(argv=None) -> int:
     }
     w8 = check_w8(txt, 368, gen)  # the W8 bench shape: 368 rows
     torch.cuda.empty_cache()
+    # the training shapes (2 samples x 8 views): kernels 8 and 9 and kernel 1's lse,
+    # plus a causal left-padded GQA shape at D = 128 with query rows that see no key
+    tb = TRAIN_BATCH
+    bwd = {
+        "vggt_frame": check_flash_backward("vggt_frame", tb * V, tpf, vis.num_heads, vis.num_heads, vd, causal=False,
+                                           starts=[0] * (tb * V), ends=[tpf] * (tb * V), gen=gen),
+        "vggt_global": check_flash_backward("vggt_global", tb, V * tpf, vis.num_heads, vis.num_heads, vd,
+                                            causal=False, starts=[0] * tb, ends=[V * tpf] * tb, gen=gen),
+        "causal_gqa": check_flash_backward("causal_gqa_d128", 2, 512, txt.num_heads, txt.num_kv_heads, txt.head_dim,
+                                           causal=True, starts=[0, 37], ends=[512, 500], gen=gen),
+    }
     phase_done("kernel checks")
     reference_check(args.seed)
     reference_check_w8(args.seed)
     reference_check_speculative(args.seed)
+    reference_check_train(args.seed)
     phase_done("card-vs-CPU checks")
     runs = main_path(args)
     phase_done("QA path")
@@ -1231,19 +1757,27 @@ def main(argv=None) -> int:
     phase_done("W8 bench path")
     arkit_plain, arkit_spec = arkit_path(args)
     phase_done("ARKit path")
+    train = train_path(args)
+    phase_done("training path")
 
     f, d = flash["vggt_global"], decode["bf16"]
+    lse = bwd["vggt_global"]["flash_fwd_lse"]
     kernels = [
         dict(name="flash_fwd", route="cuda", source="vggt_qwen3_tpu_torch/csrc/flash_fwd.cu",
-             replaces=FLASH_REPLACES, launches=runs[None][0], **f),
+             replaces=FLASH_REPLACES, launches=runs[None][0], **f, lse_shape=lse["shape"],
+             lse_ms=lse["ms_with_lse"], no_lse_ms=lse["ms_without"], training_launches=train["counts"]["flash_fwd"]),
         dict(name="decode_attention", route="cuda", source="vggt_qwen3_tpu_torch/csrc/decode_attention.cu",
              replaces=DECODE_REPLACES, launches=runs[None][1], **d),
         dict(name="block_verify_attention", route="cuda", source="vggt_qwen3_tpu_torch/csrc/block_verify.cu",
              replaces=VERIFY_REPLACES, launches=arkit_spec["block_verify_attention"], **verify["bf16"]),
     ] + [dict(name=n, route="cuda", source=W8_SOURCE, replaces=W8_REPLACES[n], launches=w8_counts[n], **w8[n])
-         for n in W8_REPLACES]
+         for n in W8_REPLACES] + [
+        dict(name=n, route="cuda", source=BWD_SOURCE, replaces=BWD_REPLACES[n], launches=train["counts"][n],
+             **bwd["vggt_global"][n]) for n in BWD_REPLACES]
     print(f"int8-cache run launches: flash {runs['int8'][0]}, decode {runs['int8'][1]}", flush=True)
     print(f"ARKit plain constrained run launches: {json.dumps(arkit_plain)}", flush=True)
+    print(f"training run (freeze_vision false, {2 * TRAIN_GRAD_ACCUM} micro steps) launches: "
+          f"{json.dumps(train['counts'])}; a micro step: {train['per_step']}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s, by phase {json.dumps(phases)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

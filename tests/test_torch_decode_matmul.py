@@ -374,6 +374,59 @@ def test_decode_step_routes_w8_layers_through_the_fused_wrappers(monkeypatch):
                     for n in ("fused_qkv_w8", "fused_linear_w8", "fused_mlp_w8")]
 
 
+FUSED_WRAPPERS = ("fused_qkv_w8", "fused_linear_w8", "fused_mlp_w8")
+
+
+@pytest.mark.parametrize("targets,fused", [
+    (("q_proj", "k_proj", "v_proj", "o_proj"), {"fused_mlp_w8"}),  # the shipped qkvo LoRA
+    (("v_proj", "down_proj"), {"fused_linear_w8"}),
+    (tuple(pqwen3.LORA_TARGET_MAP), set()),
+], ids=["qkvo", "v_down", "all"])
+def test_w8_decode_step_with_lora_fuses_each_group_without_adapters_as_jax(jax_kernels_forced, monkeypatch,
+                                                                           targets, fused):
+    """With LoRA adapters on a W8 tree, a decode step runs the fused kernel of
+    each projection group (QKV, WO, MLP) that has no adapter, as the JAX
+    module gates each group on its own adapters; the logits agree with JAX's
+    (nonzero B, so the adapters count) at the forced-kernels test's
+    tolerance."""
+    cfg = _engine_cfg()
+    lora_cfg = jconfig.LoRAConfig(enable=True, rank=4, alpha=8, target_modules=targets)
+    jp = jqwen3.add_lora(jqwen3.init_params(jax.random.PRNGKey(4), cfg, dtype="float32"), cfg, lora_cfg,
+                         jax.random.PRNGKey(5))  # a trained tree, then quantized for serving
+    jp = to_np(jqwen3.quantize_params(jp, donate=False, embed=False))
+    rng = np.random.default_rng(9)
+    for ad in jp["layers"]["lora"].values():
+        ad["B"] = (rng.standard_normal(ad["B"].shape) * 0.02).astype(np.float32)
+    pp, pcfg = params_from_jax(jp), port_cfg(cfg)
+    jp = jax.tree_util.tree_map(jnp.asarray, jp)
+    jcounts = {n: count_dispatch(monkeypatch, jdm, n) for n in FUSED_WRAPPERS}
+    seen = set()
+    for name in FUSED_WRAPPERS:
+        real = getattr(pqwen3, name)
+        monkeypatch.setattr(pqwen3, name, lambda *a, _n=name, _r=real: seen.add(_n) or _r(*a))
+    Bn, S, total = 64, 4, 64  # the JAX decode gates need B·T ≥ 4096
+    ids = rng.integers(1, 256, (Bn, S)).astype(np.int32)
+    mask = np.zeros((Bn, total), np.int32)
+    mask[:, :S] = 1
+    jc = jqwen3.init_cache(cfg, Bn, total, dtype="float32")
+    pc = pqwen3.init_cache(pcfg, Bn, total, dtype="float32")
+    _, jc = jqwen3.forward(jp, cfg, input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask), cache=jc,
+                           prefill_padding="left", last_logit_only=True)
+    _, pc = pqwen3.forward(pp, pcfg, input_ids=torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),
+                           cache=pc, prefill_padding="left", last_logit_only=True)
+    assert not seen
+    tok = ids[:, -1:]
+    mask[:, S] = 1
+    step = np.full((Bn, 1), S, np.int32)
+    jl, _ = jqwen3.forward(jp, cfg, input_ids=jnp.asarray(tok), attention_mask=jnp.asarray(mask),
+                           positions=jnp.asarray(step), cache=jc, cache_offset=S, decode_frontier=True)
+    pl, _ = pqwen3.forward(pp, pcfg, input_ids=torch.from_numpy(tok), attention_mask=torch.from_numpy(mask),
+                           positions=torch.from_numpy(step), cache=pc, cache_offset=S, decode_frontier=True)
+    assert seen == fused
+    assert {n for n, c in jcounts.items() if c["n"]} == fused
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), rtol=5e-5, atol=5e-5)
+
+
 # ---------------------------------------------------------------------------
 # the W8 QA path and the bench
 # ---------------------------------------------------------------------------

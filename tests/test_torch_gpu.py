@@ -64,6 +64,85 @@ def test_flash_kernel_reads_strided_views():
     assert agreement(got, ref)["ok"], agreement(got, ref)
 
 
+def _backward_inputs(g, D, NH, NKV, causal, B=3, S=150):
+    """Ragged bounds (row 1 left-padded: with ``causal`` its first 17 queries
+    see no key; row 2 ends at 130), 1e4 in every K/V slot outside the
+    frontier, a random output cotangent."""
+    q = torch.randn(B, S, NH, D, device="cuda", generator=g).bfloat16()
+    k = torch.randn(B, S, NKV, D, device="cuda", generator=g).bfloat16()
+    v = torch.randn(B, S, NKV, D, device="cuda", generator=g).bfloat16()
+    start = torch.tensor([0, 17, 70][:B], dtype=torch.int32, device="cuda")
+    end = torch.tensor([150, 150, 130][:B], dtype=torch.int32, device="cuda")
+    pos = torch.arange(S, device="cuda")
+    outside = ((pos[None] < start[:, None]) | (pos[None] >= end[:, None]))[:, :, None, None]
+    k.masked_fill_(outside, 1e4)
+    v.masked_fill_(outside, 1e4)
+    d_out = torch.randn(B, S, NH, D, device="cuda", generator=g).bfloat16()
+    return q, k, v, start, end, d_out, outside
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,NH,NKV,causal", [(64, 16, 16, False), (128, 32, 8, True), (64, 4, 2, True)])
+def test_flash_lse_matches_plain(D, NH, NKV, causal):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, start, end, _, _ = _backward_inputs(g, D, NH, NKV, causal)
+    out, lse = pflash.flash_attention_with_lse(q, k, v, causal=causal, kv_start=start, kv_end=end)
+    ref_out, ref_lse = pflash.flash_attention_plain_with_lse(q, k, v, causal=causal, kv_start=start, kv_end=end)
+    assert lse.shape == (3, NH, 150) and lse.dtype == torch.float32
+    live = ref_lse > -1e29
+    torch.testing.assert_close(lse[live], ref_lse[live], rtol=0, atol=1e-4)
+    assert (lse[~live] == -1e30).all() and (not causal or (~live).any())
+    assert agreement(out, ref_out)["ok"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,NH,NKV,causal", [(64, 16, 16, False), (128, 32, 8, True), (64, 4, 2, True)])
+def test_flash_backward_kernels_match_plain(D, NH, NKV, causal):
+    """Kernels 8 and 9 against the plain backward on the same lse and output;
+    dead rows and keys no query sees get exactly 0."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, start, end, d_out, outside = _backward_inputs(g, D, NH, NKV, causal)
+    out, lse = pflash.flash_attention_with_lse(q, k, v, causal=causal, kv_start=start, kv_end=end)
+    g_lse = torch.randn(lse.shape, device="cuda", generator=g) * 0.1
+    n0 = (pflash.dq_launches, pflash.dkv_launches)
+    got = pflash.flash_attention_backward(q, k, v, start, end, out, lse, d_out, g_lse, causal=causal)
+    torch.cuda.synchronize()
+    assert (pflash.dq_launches, pflash.dkv_launches) == (n0[0] + 1, n0[1] + 1)
+    ref = pflash.flash_attention_backward_plain(q, k, v, start, end, out, lse, d_out, g_lse, causal=causal)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == r.shape and a.dtype == torch.bfloat16, name
+        assert agreement(a, r)["ok"], (name, agreement(a, r))
+    dq, dk, dv = got
+    assert not dk[outside.expand_as(dk)].any() and not dv[outside.expand_as(dv)].any()
+    if causal:
+        assert not dq[1, :17].any(), "a query with no valid key must get exactly 0"
+
+
+@pytest.mark.gpu
+def test_flash_autograd_runs_the_backward_kernels_on_strided_views():
+    """q/k/v as the VGGT block hands them over (views into one packed qkv
+    that requires grad): the gradient comes from kernels 8 and 9."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    B, T, NH, D = 2, 77, 4, 64
+    qkv = torch.randn(B, T, 3 * NH * D, device="cuda", generator=g).bfloat16().requires_grad_()
+    d_out = torch.randn(B, T, NH, D, device="cuda", generator=g).bfloat16()
+    q, k, v = (t.reshape(B, T, NH, D) for t in qkv.chunk(3, dim=-1))
+    n0 = (pflash.launches, pflash.dq_launches, pflash.dkv_launches)
+    out = pflash.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    (out.float() * d_out.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (pflash.launches, pflash.dq_launches, pflash.dkv_launches) == (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    qc, kc, vc = (t.detach().contiguous() for t in (q, k, v))
+    o, lse = pflash.flash_attention_plain_with_lse(qc, kc, vc)
+    ref = torch.cat([t.reshape(B, T, NH * D) for t in
+                     pflash.flash_attention_backward_plain(qc, kc, vc, None, None, o, lse, d_out)], dim=-1)
+    assert agreement(qkv.grad, ref)["ok"], agreement(qkv.grad, ref)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("D,NH,NKV", [(128, 32, 8), (64, 4, 2)])

@@ -33,9 +33,10 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
     from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
     from vggt_qwen3_tpu_torch.inference import qa
+    from vggt_qwen3_tpu_torch.train import sft
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     stage = qa.build_stage(_tiny_args())
@@ -45,6 +46,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         qa.run_inference(params, stage, load_tokenizer(None), [sample], max_new_tokens=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         qa.load_model(stage)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sft.main(["--config", str(REPO / "configs/stage1_3d.yaml"), "--output_dir", str(tmp_path), "--tiny"])
+    assert not any(tmp_path.iterdir())
 
 
 def _tiny_args():
@@ -64,6 +68,20 @@ def test_chip_smoke_stage_is_stage1_3d():
     # the QA path reads the model and data blocks; geom is not on it
     assert dataclasses.replace(built.model, geom_tokens=0) == dataclasses.replace(loaded.model, geom_tokens=0)
     assert built.data == loaded.data
+
+
+def test_chip_smoke_train_stage_is_stage1_3d_with_its_reductions():
+    """The training phase's stage is the recipe's, but for the three listed
+    reductions: batch 2 (6), grad_accum 2 (32), a 4-step schedule (30,000)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from vggt_qwen3_tpu_torch.config import load_stage_config
+
+    built = chip_smoke.train_stage()
+    loaded = load_stage_config(REPO / "configs/stage1_3d.yaml")
+    assert (built.model, built.data, built.lora, built.freeze_text_layers) == \
+        (loaded.model, loaded.data, loaded.lora, loaded.freeze_text_layers)
+    assert dataclasses.replace(built.train, batch_size_per_device=6, grad_accum=32, max_steps=30_000) == loaded.train
 
 
 def test_chip_smoke_arkit_stage_is_stage2_arkit():

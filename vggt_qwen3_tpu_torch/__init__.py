@@ -8,7 +8,8 @@ and function names so each counterpart is easy to find:
   param-tree layout, stacked ``[L, ...]`` per-layer weights included).
 - ``ops/``      : norms, RoPE, sampling, preprocessing, W8 quantization and
   the kernel entry points. The kernels are hand-written CUDA C++ for Hopper
-  (``csrc/flash_fwd.cu``, ``csrc/decode_attention.cu``,
+  (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` — the flash backward —,
+  ``csrc/decode_attention.cu``,
   ``csrc/block_verify.cu`` — speculative block-verify attention — and
   ``csrc/decode_matmul.cu``), each with its plain PyTorch version beside its
   wrapper.
@@ -16,6 +17,9 @@ and function names so each counterpart is easy to find:
   prompt-lookup speculative decoding, the action-JSON constraint tables,
   batching, and the QA and ARKit CLIs (``python -m
   vggt_qwen3_tpu_torch.inference.qa`` / ``.arkit``).
+- ``train/``  : the SFT trainer (optax's AdamW, clip and accumulation in
+  plain torch), losses, ``torch.save`` checkpoints and the CLI (``python -m
+  vggt_qwen3_tpu_torch.train.sft``); ``data/`` holds the collator and loader.
 
 Kernels are chosen by device: a CUDA tensor goes through the kernel (or the
 wrapper raises), a CPU tensor through the plain version. Entry points default

@@ -7,7 +7,11 @@
 // head h reading kv head h / group, QK in bf16 with f32 accumulation and the
 // scale applied to the f32 scores, the unnormalised P rounded to bf16 before
 // PV, m/l/acc in f32, output acc / max(l, 1e-20) (a row with no valid key
-// gives 0).
+// gives 0). With a non-null lse pointer the kernel also writes each row's
+// logsumexp m + log(max(l, 1e-30)) in f32 ([B, NH, S]; -1e30 on a row with
+// no valid key), as the TPU kernel's lse output does (:130-139) — the
+// statistic the backward kernels (flash_bwd.cu) recompute P from. A null
+// pointer writes none, so the inference paths are unchanged.
 //
 // What bounds it on the H100: at the VGGT shapes (D=64, 1029 or 8232 keys)
 // and the Qwen3 prefill (D=128) the work is 4*B*NH*S*T*D tensor-core FLOPs
@@ -58,7 +62,7 @@ template <int D>
 __global__ void __launch_bounds__(128) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    const int* __restrict__ kv_start, const int* __restrict__ kv_end,
+    float* __restrict__ lse, const int* __restrict__ kv_start, const int* __restrict__ kv_end,
     int S, int T, int NH, int group,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
@@ -219,6 +223,14 @@ __global__ void __launch_bounds__(128) flash_fwd_kernel(
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
+  if (lse != nullptr && tig == 0) {
+    float* lb = lse + (static_cast<long long>(b) * NH + h) * S;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r == 0 ? rowA : rowB;
+      if (row < S) lb[row] = m_run[r] == -INFINITY ? -1e30f : m_run[r] + logf(fmaxf(l_run[r], 1e-30f));
+    }
+  }
   const float invA = 1.f / fmaxf(l_run[0], 1e-20f);
   const float invB = 1.f / fmaxf(l_run[1], 1e-20f);
   const long long NHD = static_cast<long long>(NH) * D;
@@ -236,7 +248,7 @@ __global__ void __launch_bounds__(128) flash_fwd_kernel(
 }  // namespace
 
 extern "C" int flash_fwd_bf16(
-    const void* q, const void* k, const void* v, void* out,
+    const void* q, const void* k, const void* v, void* out, void* lse,
     const void* kv_start, const void* kv_end,
     int B, int S, int T, int NH, int NKV, int D,
     long long q_sb, long long q_ss, long long q_sh,
@@ -251,14 +263,15 @@ extern "C" int flash_fwd_bf16(
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* lp = static_cast<float*>(lse);
   const auto* sp = static_cast<const int*>(kv_start);
   const auto* ep = static_cast<const int*>(kv_end);
   const int group = NH / NKV;
   if (D == 64) {
-    flash_fwd_kernel<64><<<grid, block, 0, st>>>(qp, kp, vp, op, sp, ep, S, T, NH, group,
+    flash_fwd_kernel<64><<<grid, block, 0, st>>>(qp, kp, vp, op, lp, sp, ep, S, T, NH, group,
         q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal);
   } else if (D == 128) {
-    flash_fwd_kernel<128><<<grid, block, 0, st>>>(qp, kp, vp, op, sp, ep, S, T, NH, group,
+    flash_fwd_kernel<128><<<grid, block, 0, st>>>(qp, kp, vp, op, lp, sp, ep, S, T, NH, group,
         q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,18 +1,25 @@
-"""Multi-view JSON/JSONL record reader (the record-reading part of
-``vggt_qwen3_tpu/data/dataset.py``).
+"""Multi-view JSON/JSONL record reader and the mixed-ratio multi-source
+dataset (the port's own copy of ``vggt_qwen3_tpu/data/dataset.py``).
 
 Records normalise to ``{images, geom_token, question, answer, task,
 scene_id}``; image paths resolve with the ``data/raw`` fallback; images load
 as RGB uint8 numpy arrays through PIL, imported only when an image is read.
 JSONL is parsed with ``json``, so no native library is needed. Ragged view
 counts pad to ``num_views`` by repeating the last view, as the JAX package
-does (a known divergence from the upstream reference, kept for parity).
+does (a known divergence from the upstream reference, kept for parity);
+per-view geometry arrays follow the same truncate/pad policy.
+
+:class:`MultiSourceDataset` keeps the reference's mix-ratio interleave with
+its randomness: a ~100-slot schedule from the ratios, ``random.Random(0)``,
+sampling with replacement; ``consume_rng`` advances that draw stream without
+touching data, so a resumed loader reproduces the stream exactly.
 """
 
 from __future__ import annotations
 
 import glob as globlib
 import json
+import random
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -81,6 +88,22 @@ class MultiViewJsonDataset:
                 return load_rgb(str(cand))
         raise FileNotFoundError(f"image not found: tried {', '.join(map(str, candidates))}")
 
+    def _normalize_geom(self, geom):
+        """Per-view [V', k] arrays truncated or padded (last view repeated) to
+        ``num_views``, as the views are; other values pass through."""
+        if not isinstance(geom, dict):
+            return geom
+        V = self.config.num_views
+        out = {}
+        for key, val in geom.items():
+            a = np.asarray(val, np.float32)
+            if a.ndim == 2 and a.shape[0] != V:
+                a = a[:V]
+                if a.shape[0] and a.shape[0] < V:
+                    a = np.concatenate([a, np.repeat(a[-1:], V - a.shape[0], axis=0)])
+            out[key] = a
+        return out
+
     def __getitem__(self, idx: int) -> Dict:
         sample = self._records[idx]
         loaded = [self._load_image(img) for img in sample["images"][: self.config.num_views]]
@@ -88,9 +111,40 @@ class MultiViewJsonDataset:
             loaded.append(loaded[-1])
         return {
             "images": loaded,
-            "geom_token": sample.get("geom_token"),
+            "geom_token": self._normalize_geom(sample.get("geom_token")),
             "question": sample.get("question") or sample.get("instruction"),
             "answer": sample.get("answer") or sample.get("action_json"),
             "task": sample.get("task", self.config.task),
             "scene_id": sample.get("scene_id"),
         }
+
+
+class MultiSourceDataset:
+    """Mix-ratio interleave (reference semantics, including randomness)."""
+
+    def __init__(self, datasets: Dict[str, MultiViewJsonDataset], mix_ratio: Dict[str, float]):
+        self.datasets = datasets
+        self.mix_ratio = mix_ratio
+        self.order = self._build_schedule()
+        self.total_length = sum(len(v) for v in datasets.values())
+        self.random = random.Random(0)
+
+    def _build_schedule(self) -> List[str]:
+        total = sum(self.mix_ratio.values())
+        schedule: List[str] = []
+        for name, weight in self.mix_ratio.items():
+            schedule.extend([name] * max(1, int(round(weight / total * 100))))
+        return schedule
+
+    def __len__(self) -> int:
+        return self.total_length
+
+    def __getitem__(self, idx: int) -> Dict:
+        ds = self.datasets[self.order[idx % len(self.order)]]
+        return ds[self.random.randint(0, len(ds) - 1)]
+
+    def consume_rng(self, idx: int) -> None:
+        """Advance the sampling rng exactly as ``self[idx]`` would, without
+        touching data."""
+        ds = self.datasets[self.order[idx % len(self.order)]]
+        self.random.randint(0, len(ds) - 1)

@@ -13,8 +13,8 @@ decode with the action-JSON FSM (``inference/constrained.py``);
         --glob data/processed/arkit_synth/test.json [--constrained_json] [--speculative] \\
         [--random_full] [--tiny] [--mock_vision] [--device cuda]
 
-Weights are random (seeded); restoring a trained checkpoint waits for the
-training slice.
+Weights are random (seeded), or restored from a port checkpoint
+(``--checkpoint_dir``, through ``qa.load_model``).
 """
 
 from __future__ import annotations

@@ -10,8 +10,8 @@ with repetition penalty 1.1, the answer heuristics of
         --max_new_tokens 32 --output_jsonl out.jsonl [--random_full] [--tiny] \\
         [--mock_vision] [--batch_size 8] [--speculative] [--device cuda]
 
-Weights are random (seeded); restoring a trained checkpoint waits for the
-training slice.
+Weights are random (seeded), or restored from a port checkpoint
+(``--checkpoint_dir``, written by ``python -m vggt_qwen3_tpu_torch.train.sft``).
 """
 
 from __future__ import annotations
@@ -31,18 +31,25 @@ from ..config import QWEN3_TINY, VGGT_TINY, PerceiverConfig, StageConfig, load_s
 from ..data.dataset import DatasetConfig, MultiViewJsonDataset
 from ..data.tokenizer import IMAGE_TOKEN, load_tokenizer
 from ..models import qwen3, vlm
+from ..train import checkpoint as ckpt
 from .batching import generate_batch, max_prompt_len
 from .engine import GenerationConfig
 from .postprocess import postprocess_qa_answer
 
 
 def load_model(stage: StageConfig, checkpoint_dir: Optional[str] = None, rng_seed: int = 0, device="cuda"):
-    """Random init of the whole model on ``device`` from a seeded generator."""
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint restore waits for the training slice (ROADMAP: training)"
-        )
+    """The model's params on ``device``: restored from a port checkpoint
+    (a ``step_<n>`` directory written by ``train.sft``, or a directory
+    holding them — the newest wins; LoRA adapters come with it), else a
+    random init from a seeded generator."""
     dev = resolve_device(device)
+    if checkpoint_dir:
+        path = Path(checkpoint_dir)
+        step_dir = path if (path / "params.pt").exists() else ckpt.latest_step_dir(path)
+        if step_dir is None:
+            raise FileNotFoundError(f"no checkpoint (step_<n>/params.pt) under {path}")
+        print(f"restored checkpoint {step_dir}", flush=True)
+        return ckpt.load_params(step_dir, dev)
     gen = torch.Generator(device=dev).manual_seed(rng_seed)
     return vlm.init_params(gen, stage.model, dtype=stage.model.dtype)
 

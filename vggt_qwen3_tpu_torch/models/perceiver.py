@@ -1,18 +1,27 @@
-"""Perceiver resampler in eval mode (counterpart of
-``vggt_qwen3_tpu/models/perceiver.py``): learned latents cross-attend to the
-projected vision tokens, with the reference's post-LN residual order
+"""Perceiver resampler (counterpart of ``vggt_qwen3_tpu/models/perceiver.py``):
+learned latents cross-attend to the projected vision tokens, with the
+reference's post-LN residual order
 
     latents = norm1(latents + attn(latents ⟵ context))
     latents = norm2(latents + mlp(latents))
 
 and an exact-erf GELU MLP. Attention is plain ``mha`` (the JAX module uses
-XLA there too; head dim 512 at ``perceiver_small``). Dropout belongs to
-training, which waits for its slice.
+XLA there too; head dim 512 at ``perceiver_small``).
+
+Training dropout (rate ``cfg.dropout``) at the three sites of each layer —
+the attention output, the GELU output and the MLP output — draws its masks
+from an explicit ``torch.Generator``: ``generator=None`` is eval mode. The
+masks are other bits than JAX's ``jax.random`` draws from the same seed;
+their distribution is the same (keep with probability ``1 − rate``, kept
+values scaled by ``1/(1 − rate)``). The Perceiver is not recomputed under
+``torch.utils.checkpoint`` (nor is it checkpointed in JAX): a recompute
+restores the global RNG, not an explicit generator, so it would draw other
+masks.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +29,7 @@ import torch.nn.functional as F
 from ..config import PerceiverConfig
 from ..ops.attention import mha
 from ..ops.norms import layer_norm
-from .qwen3 import torch_dtype
+from .common import layer_views, torch_dtype
 
 Params = Dict[str, object]
 
@@ -63,22 +72,39 @@ def init_params(
     }
 
 
-def apply(params: Params, cfg: PerceiverConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Resample ``tokens`` [B, T, in_dim] → [B, num_latents, out_dim] (eval)."""
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 − rate`` and
+    scaled by ``1/(1 − rate)``, the mask drawn from ``generator`` on its
+    device; ``x`` itself when ``generator`` is None or ``rate`` is 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+def apply(params: Params, cfg: PerceiverConfig, tokens: torch.Tensor, *,
+          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Resample ``tokens`` [B, T, in_dim] → [B, num_latents, out_dim].
+
+    ``generator`` enables dropout (rate ``cfg.dropout``) for training; the
+    masks are drawn from it on its device, layer by layer, in site order."""
     B = tokens.shape[0]
     D, H = cfg.latent_dim, cfg.num_heads
     hd = D // H
+
+    def drop(x):
+        return dropout(x, cfg.dropout, generator)
+
     context = tokens @ params["in_proj_w"] + params["in_proj_b"]
     lat = params["latents"][None].expand(B, -1, -1).to(context.dtype)
-    layers = params["layers"]
     eps = cfg.layer_norm_eps
-    for i in range(cfg.num_layers):
-        lp = {k: w[i] for k, w in layers.items()}
+    for lp in layer_views(params["layers"], cfg.num_layers):
         q = (lat @ lp["wq"] + lp["bq"]).reshape(B, -1, H, hd)
         k = (context @ lp["wk"] + lp["bk"]).reshape(B, -1, H, hd)
         v = (context @ lp["wv"] + lp["bv"]).reshape(B, -1, H, hd)
         attn = mha(q, k, v).reshape(B, -1, D) @ lp["wo"] + lp["bo"]
-        lat = layer_norm(lat + attn, lp["ln1_w"], lp["ln1_b"], eps)
-        h = F.gelu(lat @ lp["mlp_w1"] + lp["mlp_b1"]) @ lp["mlp_w2"] + lp["mlp_b2"]
-        lat = layer_norm(lat + h, lp["ln2_w"], lp["ln2_b"], eps)
+        lat = layer_norm(lat + drop(attn), lp["ln1_w"], lp["ln1_b"], eps)
+        h = drop(F.gelu(lat @ lp["mlp_w1"] + lp["mlp_b1"])) @ lp["mlp_w2"] + lp["mlp_b2"]
+        lat = layer_norm(lat + drop(h), lp["ln2_w"], lp["ln2_b"], eps)
     return lat @ params["out_proj_w"] + params["out_proj_b"]

@@ -28,12 +28,22 @@ The cache is updated **in place** (the JAX module returns an updated copy);
 W8 serving weights (:func:`quantize_params`): every layer projection is a
 ``{"w8", "scale"}`` dict and the tied embedding an int8 row quantization.
 Projections go through ``ops.quant.linear`` (dequantize, then one matmul);
-on a decode step whose seven layer projections are all W8, the three fused
-W8 kernels of ``ops/decode_matmul.py`` run instead, over the stacked weights
+on a decode step over W8 layers, the three fused W8 kernels of
+``ops/decode_matmul.py`` (QKV, WO, MLP) run instead, over the stacked weights
 at layer ``li``. The int8 LM head scales its f32 logits after the dot;
 :func:`greedy_tokens` reaches the fused head-argmax kernel.
 
-Not ported: LoRA, the W8A8 and W4 modes and the pipeline.
+LoRA (:func:`add_lora`): low-rank adapters ``lora[key] = {A, B, s}`` beside
+the stacked projections; every projection with an adapter adds
+``(x @ A) @ B · s``, cached or not (a fused W8 decode kernel runs only
+where its group of projections has no adapter). No LoRA dropout, as in the JAX module.
+
+Training (the cache-free path with grad on): each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), as ``jax.checkpoint`` wraps the
+JAX module's layer scan; attention there is the plain masked ``mha``, as in
+JAX. :func:`lm_logits` differentiates through its f32-output head product.
+
+Not ported: the W8A8 and W4 modes and the pipeline.
 """
 
 from __future__ import annotations
@@ -51,22 +61,9 @@ from ..ops.decode_matmul import fused_head_argmax, fused_linear_w8, fused_mlp_w8
 from ..ops.flash_attention import flash_attention
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin
+from .common import layer_views, normal, remat, torch_dtype
 
 Params = Dict[str, object]
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
-
-
-def torch_dtype(name) -> torch.dtype:
-    """Config dtype string (or torch dtype) → torch dtype."""
-    return name if isinstance(name, torch.dtype) else _DTYPES[name]
-
-
-def normal(gen: torch.Generator, shape, std: float, dt: torch.dtype) -> torch.Tensor:
-    """N(0, std²) drawn in float32 from ``gen`` on its device, cast to ``dt``."""
-    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    return x.normal_(0.0, std, generator=gen).to(dt)
-
 
 def init_params(gen: torch.Generator, cfg: Qwen3Config, dtype: Optional[str] = None) -> Params:
     """Random init on ``gen.device`` (normal(0.02) linears/embeddings, unit
@@ -139,41 +136,93 @@ def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
     return emb[ids]
 
 
-def _layer(lp: Params, li: int) -> Dict[str, object]:
-    """Layer ``li`` of the stacked weights (views; W8 dicts sliced leaf-wise)."""
-    return {k: ({n: t[li] for n, t in w.items()} if isinstance(w, dict) else w[li]) for k, w in lp.items()}
+# HF/PEFT module names (the stage YAML's lora.target_modules) → layer keys.
+LORA_TARGET_MAP = {
+    "q_proj": "wq", "k_proj": "wk", "v_proj": "wv", "o_proj": "wo",
+    "gate_proj": "gate", "up_proj": "up", "down_proj": "down",
+}
+
+
+def add_lora(params: Params, cfg: Qwen3Config, lora_cfg, gen: torch.Generator) -> Params:
+    """Attach low-rank adapters: for each target projection W [L, in, out],
+    ΔW = (A @ B)·α/r with A ~ N(0, 0.02²) [L, in, r], B = 0 [L, r, out] (the
+    adapted model starts exactly at the base model) and the scale stored as
+    a [L, 1] leaf ``s``. Returns a new tree; the base leaves are shared."""
+    r, L = lora_cfg.rank, cfg.num_layers
+    lora = {}
+    for name in lora_cfg.target_modules:
+        key = LORA_TARGET_MAP[name]
+        w = params["layers"][key]
+        in_dim, out_dim = (w["w8"] if isinstance(w, dict) else w).shape[-2:]
+        dt = (w["scale"] if isinstance(w, dict) else w).dtype
+        lora[key] = {
+            "A": normal(gen, (L, in_dim, r), 0.02, dt),
+            "B": torch.zeros((L, r, out_dim), dtype=dt, device=gen.device),
+            "s": torch.full((L, 1), lora_cfg.scale, dtype=dt, device=gen.device),
+        }
+    out = dict(params)
+    out["layers"] = dict(params["layers"], lora=lora)
+    return out
+
+
+def _maybe_lora(lp, key: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y + the LoRA delta of projection ``key`` when an adapter is present,
+    in the promoted dtype of x and the adapter, as JAX promotes them (bf16
+    activations of W8 weights under f32 adapters)."""
+    ad = lp.get("lora", {}).get(key)
+    if ad is None:
+        return y
+    dt = torch.promote_types(x.dtype, ad["A"].dtype)
+    return y + ((x.to(dt) @ ad["A"].to(dt)) @ ad["B"].to(dt)) * ad["s"][0]
+
+
+def _linear(lp, key: str, x: torch.Tensor) -> torch.Tensor:
+    return _maybe_lora(lp, key, x, quant.linear(x, lp[key]))
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, t.shape[-1])
 
 
-def _layer_qkv(cfg: Qwen3Config, h, lp, cos, sin, stacked=None, li: int = 0):
-    """Pre-attention projections: normed x, rotated q/k, v. With ``stacked``
-    (the W8 layer weights of a decode step) one fused kernel launch computes
-    q/k/v from the stacked weights at layer ``li``."""
+def _fused_groups(layers: Params) -> frozenset:
+    """The projection groups of a decode step or verify block that run
+    through the fused W8 kernels: each group whose projections are all W8
+    and carry no LoRA adapter. As in the JAX module, each group is gated on
+    its own adapters, so qkvo adapters leave the fused MLP running."""
+    lora = layers.get("lora", {})
+    return frozenset(g for g, keys in FUSED_GROUPS.items()
+                     if all(isinstance(layers[k], dict) and k not in lora for k in keys))
+
+
+def _layer_qkv(cfg: Qwen3Config, h, lp, cos, sin, stacked=None, li: int = 0, fused=frozenset()):
+    """Pre-attention projections: normed x, rotated q/k, v. With "qkv" in
+    ``fused`` (a decode step over W8 layers) one kernel launch computes q/k/v
+    from the ``stacked`` weights at layer ``li``."""
     B, S, _ = h.shape
     D, NH, NKV = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     x = rms_norm(h, lp["ln1"], cfg.rms_norm_eps)
-    if stacked is not None:
+    if "qkv" in fused:
         q, k, v = fused_qkv_w8(_rows(x), stacked["wq"], stacked["wk"], stacked["wv"], li)
     else:
-        q, k, v = (quant.linear(x, lp[n]) for n in ("wq", "wk", "wv"))
+        q, k, v = (_linear(lp, n, x) for n in ("wq", "wk", "wv"))
     q = rms_norm(q.reshape(B, S, NH, D), lp["q_norm"], cfg.rms_norm_eps)
     k = rms_norm(k.reshape(B, S, NKV, D), lp["k_norm"], cfg.rms_norm_eps)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v.reshape(B, S, NKV, D)
 
 
-def _layer_post_attn(cfg: Qwen3Config, h, lp, attn, stacked=None, li: int = 0):
+def _layer_post_attn(cfg: Qwen3Config, h, lp, attn, stacked=None, li: int = 0, fused=frozenset()):
+    """Output projection and MLP; the "wo" and "mlp" groups in ``fused`` run
+    their fused W8 kernels over the ``stacked`` weights at layer ``li``."""
     B, S, H = h.shape
     a = attn.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    if stacked is not None:  # fused W8 kernels at layer li
+    if "wo" in fused:
         h = h + fused_linear_w8(_rows(a), stacked["wo"], li).reshape(B, S, H)
-        x = rms_norm(h, lp["ln2"], cfg.rms_norm_eps)
-        return h + fused_mlp_w8(_rows(x), stacked["gate"], stacked["up"], stacked["down"], li).reshape(B, S, H)
-    h = h + quant.linear(a, lp["wo"])
+    else:
+        h = h + _linear(lp, "wo", a)
     x = rms_norm(h, lp["ln2"], cfg.rms_norm_eps)
-    return h + quant.linear(F.silu(quant.linear(x, lp["gate"])) * quant.linear(x, lp["up"]), lp["down"])
+    if "mlp" in fused:
+        return h + fused_mlp_w8(_rows(x), stacked["gate"], stacked["up"], stacked["down"], li).reshape(B, S, H)
+    return h + _linear(lp, "down", F.silu(_linear(lp, "gate", x)) * _linear(lp, "up", x))
 
 
 def _row_write_plan(offset: torch.Tensor, S: int, T: int):
@@ -262,13 +311,16 @@ def forward_hidden(
     L = cfg.num_layers
     h = inputs_embeds
 
-    if cache is None:  # causal x key padding, plain mha
+    if cache is None:  # causal x key padding, plain mha; recomputed per layer when differentiated
         pad = attention_mask[:, None, None, :].bool() if attention_mask is not None else None
         mask = combine_masks(make_causal_mask(S, S, q_offset=cache_offset, device=dev)[None, None], pad)
-        for li in range(L):
-            lp = _layer(layers, li)
+
+        def layer(h, lp):
             q, k, v = _layer_qkv(cfg, h, lp, cos, sin)
-            h = _layer_post_attn(cfg, h, lp, mha(q, k, v, mask=mask))
+            return _layer_post_attn(cfg, h, lp, mha(q, k, v, mask=mask))
+
+        for lp in layer_views(layers, L):
+            h = remat(layer, h, lp)
         return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), None
 
     use_flash = prefill_padding is not None
@@ -302,12 +354,10 @@ def forward_hidden(
     write_at = _row_write_plan(cache_offset, S, cache["k"].shape[3]) if per_row else cache_offset
     # a decode step or verify block over W8 layers runs the fused W8 kernels
     # (the prefill, like the JAX module's, dequantizes and multiplies)
-    stacked = layers if (use_decode or use_verify) and all(
-        isinstance(layers[k], dict) for k in QUANTIZED_LAYER_KEYS) else None
+    fused = _fused_groups(layers) if use_decode or use_verify else frozenset()
 
-    for li in range(L):
-        lp = _layer(layers, li)
-        q, k, v = _layer_qkv(cfg, h, lp, cos, sin, stacked, li)
+    for li, lp in enumerate(layer_views(layers, L)):
+        q, k, v = _layer_qkv(cfg, h, lp, cos, sin, layers, li, fused)
         if quantized:
             k8, ks = _quantize_kv(k)
             v8, vs = _quantize_kv(v)
@@ -328,11 +378,13 @@ def forward_hidden(
                 q.contiguous(), cache["k"], cache["v"], li, f_start, f_off,
                 cache.get("ks"), cache.get("vs"),
             )
-        h = _layer_post_attn(cfg, h, lp, attn, stacked, li)
+        h = _layer_post_attn(cfg, h, lp, attn, layers, li, fused)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
 
 
 QUANTIZED_LAYER_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+# the fused W8 decode kernels, each over its group of projections
+FUSED_GROUPS = {"qkv": ("wq", "wk", "wv"), "wo": ("wo",), "mlp": ("gate", "up", "down")}
 
 
 def quantize_rows(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -374,6 +426,25 @@ def quantize_params(params: Params, *, embed: bool = True, donate: bool = True, 
     return out
 
 
+class _HeadDot(torch.autograd.Function):
+    """:func:`_head_dot` with its gradient: the f32 cotangent multiplies f32
+    copies of the operands (the JAX transpose's f32 product; a bf16 rounding
+    of the cotangent would change the gradient into the final hidden state
+    and the tied embedding), and the gradients take the operands' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _head_dot(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = (g @ w.float().t()).to(x.dtype) if ctx.needs_input_grad[0] else None
+        gw = (x.float().t() @ g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def _head_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """f32 ``x [N, H] @ w [H, V]``. On the card a GEMM in x's dtype
     accumulates and writes f32 (an int8 head is converted to that dtype,
@@ -391,18 +462,19 @@ def lm_logits(params: Params, cfg: Qwen3Config, hidden: torch.Tensor) -> torch.T
     result: per vocab row for the tied embedding, per column for an untied
     per-channel head."""
     x = hidden.reshape(-1, hidden.shape[-1])
+    head = _HeadDot.apply if torch.is_grad_enabled() else _head_dot
     if cfg.tie_word_embeddings:
         w = params["embed"]
         if isinstance(w, dict):
             out = _head_dot(x, w["w8"].t()) * w["scale"][:, 0].float()
         else:
-            out = _head_dot(x, w.t())
+            out = head(x, w.t())
     else:
         w = params["lm_head"]
         if isinstance(w, dict):
             out = _head_dot(x, w["w8"]) * w["scale"][0].float()
         else:
-            out = _head_dot(x, w)
+            out = head(x, w)
     return out.reshape(*hidden.shape[:-1], out.shape[-1])
 
 

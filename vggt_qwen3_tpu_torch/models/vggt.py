@@ -12,6 +12,14 @@ global outputs are concatenated → [B, S, T, 2E].
 
 Every block's attention is ``ops.flash_attention.flash_attention``: the
 flash kernel on the card (D = 64 at VGGT-1B), its plain version on the CPU.
+
+Training (grad enabled, the tower not frozen): each DINOv2 block and each
+frame/global pair runs under ``torch.utils.checkpoint`` (non-reentrant), the
+boundaries of ``jax.checkpoint`` in the JAX module, so the backward keeps one
+[B·S, T, E] input per block and recomputes the block's forward — the 72
+attentions run twice a micro step, and their backward (flash kernels 8 and 9)
+once. Without recompute the activations of the 72 blocks at B = 2, 8 views,
+448² would take about 40 GB.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from ..config import VGGTConfig
 from ..ops.flash_attention import flash_attention
 from ..ops.norms import layer_norm
 from ..ops.rope2d import apply_rope2d, rope2d_cos_sin
-from .qwen3 import normal, torch_dtype
+from .common import layer_views, normal, remat, torch_dtype
 
 Params = Dict[str, object]
 
@@ -99,6 +107,13 @@ def _vit_block(x, bp, num_heads, eps, *, cos=None, sin=None, rot_mask=None):
     return x + bp["ls2"] * (h @ bp["mlp_w2"] + bp["mlp_b2"])
 
 
+def _pair(x, fbp, gbp, B, S, T, E, num_heads, eps, cos_frame, sin_frame, cos_global, sin_global):
+    """One frame block then one global block: (new x, the frame output)."""
+    x = _vit_block(x, fbp, num_heads, eps, cos=cos_frame, sin=sin_frame)
+    xg = _vit_block(x.reshape(B, S * T, E), gbp, num_heads, eps, cos=cos_global, sin=sin_global)
+    return xg.reshape(B * S, T, E), x
+
+
 def _torch_bicubic_weights(n_in: int, n_out: int, scale: Optional[float]) -> np.ndarray:
     """Row-resize weights [n_out, n_in] of torch ``F.interpolate(mode=
     "bicubic", align_corners=False, antialias=False)``: a = −0.75, half-pixel
@@ -161,9 +176,8 @@ def _patch_backbone(params: Params, cfg: VGGTConfig, frames: torch.Tensor) -> to
     cls = (pp["cls"] + cls_pos[0]).to(x.dtype).expand(N, 1, E)
     reg = pp["reg"].to(x.dtype)[None].expand(N, -1, -1)
     x = torch.cat([cls, reg, x], dim=1)
-    blocks = pp["blocks"]
-    for i in range(cfg.patch_depth):
-        x = _vit_block(x, {k: w[i] for k, w in blocks.items()}, cfg.num_heads, cfg.layer_norm_eps)
+    for bp in layer_views(pp["blocks"], cfg.patch_depth):
+        x = remat(_vit_block, x, bp, cfg.num_heads, cfg.layer_norm_eps)
     x = layer_norm(x, pp["norm_w"], pp["norm_b"], cfg.layer_norm_eps)
     return x[:, 1 + cfg.num_register_tokens :]
 
@@ -204,12 +218,10 @@ def aggregator(params: Params, cfg: VGGTConfig, images: torch.Tensor) -> Tuple[L
     sin_global = sin_f.repeat(1, S, 1).expand(B, -1, -1)
 
     eps = cfg.layer_norm_eps
-    fb, gb = params["frame_blocks"], params["global_blocks"]
-    for i in range(cfg.num_layers):
-        x = _vit_block(x, {k: w[i] for k, w in fb.items()}, cfg.num_heads, eps, cos=cos_frame, sin=sin_frame)
-        frame_out = x
-        xg = _vit_block(x.reshape(B, S * T, E), {k: w[i] for k, w in gb.items()}, cfg.num_heads, eps,
-                        cos=cos_global, sin=sin_global)
-        x = xg.reshape(B * S, T, E)
+    fb = layer_views(params["frame_blocks"], cfg.num_layers)
+    gb = layer_views(params["global_blocks"], cfg.num_layers)
+    for fbp, gbp in zip(fb, gb):
+        x, frame_out = remat(_pair, x, fbp, gbp, B, S, T, E, cfg.num_heads, eps, cos_frame, sin_frame,
+                              cos_global, sin_global)
     concat = torch.cat([frame_out, x], dim=-1)
     return [concat.reshape(B, S, T, 2 * E)], psi

@@ -60,7 +60,8 @@ def resize_center_crop(image_u8, size: int, device="cpu") -> torch.Tensor:
     top = int(round((nh - size) / 2.0))
     left = int(round((nw - size) / 2.0))
     x = x[top : top + size, left : left + size]
-    return (x / 255.0).permute(2, 0, 1).contiguous()
+    # × f32(1/255): the product XLA compiles the JAX module's jitted ``/ 255.0`` to
+    return (x * torch.tensor(1.0 / 255.0, dtype=torch.float32, device=x.device)).permute(2, 0, 1).contiguous()
 
 
 def preprocess_views(images_u8: Sequence, size: int, device="cpu") -> torch.Tensor:

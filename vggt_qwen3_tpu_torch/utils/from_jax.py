@@ -27,10 +27,11 @@ def array_to_torch(a, device="cpu") -> torch.Tensor:
 def params_from_jax(tree: Mapping[str, Any], device="cpu"):
     """Nested dict of arrays → the same nesting of tensors on ``device``.
 
-    Covers the ``text``, ``vision`` and ``projector`` subtrees of
-    ``vggt_qwen3_tpu.models.vlm.init_params`` (and any other plain nesting);
-    subtrees the port does not run, such as ``geom``, carry over unchanged
-    and are ignored.
+    Covers the whole params tree of a JAX train state
+    (``vggt_qwen3_tpu.train.trainer.init_train_state``): ``text`` with its
+    ``lora`` adapters, ``vision``, ``projector`` and ``geom``, and any other
+    plain nesting. Optimizer moments are not carried: they start at zero on
+    both sides.
     """
     if isinstance(tree, Mapping):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
