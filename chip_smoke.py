@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--max_new_tokens 32]
+    python3 chip_smoke.py --flash_bwd_tiles
 
 Run from the root of a checkout. It:
 
@@ -31,7 +32,11 @@ Run from the root of a checkout. It:
    [16, 1029, 16, 64] and global [2, 8232, 16, 64] — and at a causal,
    left-padded GQA shape [2, 512, 32/8, 128], with 1e4 in every K/V slot
    outside a row's frontier; query rows with no key and keys no query sees
-   get exactly 0; the library time there is SDPA's backward kernels;
+   get exactly 0, and a second run on the same inputs must give dq, dk and
+   dv bit for bit (no atomics); the library time there is SDPA's backward
+   kernels, printed by name, and a line of its own gives the bounds beside
+   the floor of the exponentials (one a valid score, 16 a clock per SM at
+   the card's highest SM clock, ``nvidia-smi``);
 4. holds small-width models run on the card (kernels) against the same runs
    on the CPU (plain versions): bf16; W8 with an int8 cache; and
    speculative decoding under the action-JSON constraint with an int8 cache
@@ -88,6 +93,11 @@ Run from the root of a checkout. It:
 
 Any failure raises and the script exits non-zero. Without a CUDA device, or
 outside a checkout of the repo, it exits non-zero before printing a result.
+
+With ``--flash_bwd_tiles`` it runs only the flash backward's checks of step
+3, once for each build of ``csrc/flash_bwd.cu`` in ``FLASH_BWD_TILES`` (tile
+and ring sizes at D = 64, set with nvcc defines), the source's own sizes
+first and last so that the spread of the call shows beside the differences.
 """
 
 from __future__ import annotations
@@ -105,6 +115,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak
+H100_SMS = 132
+H100_EXP_PER_SM_CLOCK = 16   # ex2 on the special function units: 4 quadrants x 4 a clock
 FLASH_REPLACES = "vggt_qwen3_tpu/ops/flash_attention.py:41"
 DECODE_REPLACES = "vggt_qwen3_tpu/ops/decode_attention.py:55"
 VERIFY_REPLACES = "vggt_qwen3_tpu/ops/decode_attention.py:317"
@@ -117,6 +129,16 @@ BWD_SOURCE = "vggt_qwen3_tpu_torch/csrc/flash_bwd.cu"
 BWD_REPLACES = {"flash_bwd_dq": "vggt_qwen3_tpu/ops/flash_attention.py:363",
                 "flash_bwd_dkv": "vggt_qwen3_tpu/ops/flash_attention.py:435"}
 TRAIN_BATCH, TRAIN_GRAD_ACCUM, TRAIN_MAX_STEPS = 2, 2, 4
+# other tile and ring sizes of csrc/flash_bwd.cu at D = 64, as the nvcc
+# defines it reads (its own: 128 queries and 3 stages for dk/dv, 128 keys and
+# 3 stages for dq)
+FLASH_BWD_TILES = {
+    "dkv_64_queries": {"DKV_QUERIES": 64},
+    "dkv_2_stages": {"DKV_STAGES": 2},
+    "dkv_4_stages": {"DKV_STAGES": 4},
+    "dq_64_keys": {"DQ_KEYS": 64},
+    "dq_2_stages": {"DQ_STAGES": 2},
+}
 W8_SOURCE = "vggt_qwen3_tpu_torch/csrc/decode_matmul.cu"
 W8_REPLACES = {
     "fused_qkv_w8": "vggt_qwen3_tpu/ops/decode_matmul.py:180",
@@ -273,6 +295,13 @@ def device_ms(fn, iters: int) -> float:
     return us / 1e3 / iters
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
 def bound_ms(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -398,7 +427,11 @@ def check_flash_backward(name, B, S, NH, NKV, D, *, causal, starts, ends, gen):
 
     out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
     dq, dk, dv = fa.flash_attention_backward(q, k, v, start, end, out, lse, d_out, causal=causal)
+    again = fa.flash_attention_backward(q, k, v, start, end, out, lse, d_out, causal=causal)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):  # no atomics: a fixed order of sums
+        raise AssertionError(f"flash_bwd[{name}]: two runs on the same inputs differ")
+    del again
 
     def plain(with_fwd=False):
         res = []
@@ -449,7 +482,8 @@ def check_flash_backward(name, B, S, NH, NKV, D, *, causal, starts, ends, gen):
     o_ = F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask if (causal or outside.any()) else None,
                                         enable_gqa=NH != NKV)
     g_ = d_out.transpose(1, 2)
-    library_ms = device_ms(lambda: torch.autograd.grad(o_, (q_, k_, v_), g_, retain_graph=True), iters=5)
+    library_by = device_ms_by_kernel(lambda: torch.autograd.grad(o_, (q_, k_, v_), g_, retain_graph=True), iters=5)
+    library_ms = sum(library_by.values())
     del o_, q_, k_, v_
     if causal:
         pairs = sum(sum(max(0, min(i + 1, e) - s) for i in range(S)) for s, e in zip(starts, ends))
@@ -458,7 +492,13 @@ def check_flash_backward(name, B, S, NH, NKV, D, *, causal, starts, ends, gen):
     qbytes, kbytes, stat = 2 * B * S * NH * D, 2 * B * S * NKV * D, 4 * B * NH * S
     dq_bound, dq_by = bound_ms(3 * qbytes + 2 * kbytes + 2 * stat, 6 * NH * D * pairs)
     dkv_bound, dkv_by = bound_ms(2 * qbytes + 4 * kbytes + 2 * stat, 8 * NH * D * pairs)
+    # each kernel takes one exponential per valid score, on the SMs' special
+    # function units: 16 a clock per SM at the card's highest SM clock
+    exp_floor = NH * pairs / (H100_SMS * H100_EXP_PER_SM_CLOCK * sm_clock_hz()) * 1e3
     shape = f"{name} q[{B},{S},{NH},{D}] kv[{B},{S},{NKV},{D}] causal={causal}"
+    print(f"sdpa_backward_kernels[{name}] {json.dumps(library_by)} (whole {library_ms:.4f} ms)", flush=True)
+    print(f"flash_bwd_floors[{name}] bound_ms dq {dq_bound:.4f} ({dq_by}), dkv {dkv_bound:.4f} ({dkv_by}); "
+          f"exp_floor_ms {exp_floor:.4f} a kernel", flush=True)
     res = {
         "flash_bwd_dq": dict(shape=shape, **agree["dq"], ms=dq_ms, call_ms=call_ms, delta_ms=delta_ms,
                              plain_ms=plain_ms, library_ms=library_ms, bound_ms=dq_bound, bound_by=dq_by),
@@ -474,6 +514,42 @@ def check_flash_backward(name, B, S, NH, NKV, D, *, causal, starts, ends, gen):
     del q, k, v, d_out, out, lse, dq, dk, dv
     torch.cuda.empty_cache()
     return res
+
+
+def backward_checks(stage, gen):
+    """check_flash_backward at the training shapes (2 samples x 8 views) and
+    at a causal left-padded GQA shape at D = 128 with query rows that see no
+    key."""
+    vis, txt = stage.model.vision, stage.model.text
+    tpf = vis.patch_start_idx + (stage.data.image_size // vis.patch_size) ** 2  # 1029 at 448²
+    B, V, D = TRAIN_BATCH, stage.data.num_views, vis.embed_dim // vis.num_heads
+    return {
+        "vggt_frame": check_flash_backward("vggt_frame", B * V, tpf, vis.num_heads, vis.num_heads, D, causal=False,
+                                           starts=[0] * (B * V), ends=[tpf] * (B * V), gen=gen),
+        "vggt_global": check_flash_backward("vggt_global", B, V * tpf, vis.num_heads, vis.num_heads, D,
+                                            causal=False, starts=[0] * B, ends=[V * tpf] * B, gen=gen),
+        "causal_gqa": check_flash_backward("causal_gqa_d128", 2, 512, txt.num_heads, txt.num_kv_heads, txt.head_dim,
+                                           causal=True, starts=[0, 37], ends=[512, 500], gen=gen),
+    }
+
+
+def flash_bwd_tiles(stage, gen) -> dict:
+    """backward_checks for each build of csrc/flash_bwd.cu in FLASH_BWD_TILES,
+    the source's own sizes first and last: {variant: {shape: (dq ms, dk/dv
+    ms)}}, the second run of the source's own under "own (again)"."""
+    from vggt_qwen3_tpu_torch.ops import kernel_build
+
+    times = {}
+    for name, defines in [("own", {}), *FLASH_BWD_TILES.items(), ("own (again)", {})]:
+        lib = kernel_build.rebuild("flash_bwd", defines)
+        spills = [ln.strip() for ln in lib.ptxas_log.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln]
+        if spills:
+            raise AssertionError(f"flash_bwd {name}: ptxas spills: {spills}")
+        res = backward_checks(stage, gen)
+        times[name] = {shape: (r["flash_bwd_dq"]["ms"], r["flash_bwd_dkv"]["ms"]) for shape, r in res.items()}
+        print(f"flash_bwd_tiles {name} {json.dumps(defines)} {json.dumps(times[name])}", flush=True)
+    kernel_build.rebuild("flash_bwd", {})
+    return times
 
 
 def check_decode(name, L, B, NH, NKV, T, D, li, starts, *, quant, gen):
@@ -1652,6 +1728,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max_new_tokens", type=int, default=32)
+    ap.add_argument("--flash_bwd_tiles", action="store_true",
+                    help="only time the flash backward at the tile and ring sizes of FLASH_BWD_TILES")
     args = ap.parse_args(argv)
 
     import torch
@@ -1688,8 +1766,13 @@ def main(argv=None) -> int:
                 print(f"  ptxas: {line.strip()}", flush=True)
 
     phase_done("build")
-    # main-path shapes: 8 prompts, left-padded, 128 vision tokens spliced in
     stage = full_stage()
+    if args.flash_bwd_tiles:
+        times = flash_bwd_tiles(stage, torch.Generator(device="cuda").manual_seed(args.seed))
+        print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(json.dumps({"flash_bwd_tiles": times}), flush=True)
+        return 0
+    # main-path shapes: 8 prompts, left-padded, 128 vision tokens spliced in
     tok = load_tokenizer(None)
     samples = load_samples(args.seed)
     lens = [len(tok(f"{s['question']}\n<image>\n")["input_ids"]) for s in samples]
@@ -1734,17 +1817,7 @@ def main(argv=None) -> int:
     }
     w8 = check_w8(txt, 368, gen)  # the W8 bench shape: 368 rows
     torch.cuda.empty_cache()
-    # the training shapes (2 samples x 8 views): kernels 8 and 9 and kernel 1's lse,
-    # plus a causal left-padded GQA shape at D = 128 with query rows that see no key
-    tb = TRAIN_BATCH
-    bwd = {
-        "vggt_frame": check_flash_backward("vggt_frame", tb * V, tpf, vis.num_heads, vis.num_heads, vd, causal=False,
-                                           starts=[0] * (tb * V), ends=[tpf] * (tb * V), gen=gen),
-        "vggt_global": check_flash_backward("vggt_global", tb, V * tpf, vis.num_heads, vis.num_heads, vd,
-                                            causal=False, starts=[0] * tb, ends=[V * tpf] * tb, gen=gen),
-        "causal_gqa": check_flash_backward("causal_gqa_d128", 2, 512, txt.num_heads, txt.num_kv_heads, txt.head_dim,
-                                           causal=True, starts=[0, 37], ends=[512, 500], gen=gen),
-    }
+    bwd = backward_checks(stage, gen)  # kernels 8 and 9 and kernel 1's lse
     phase_done("kernel checks")
     reference_check(args.seed)
     reference_check_w8(args.seed)

@@ -22,7 +22,9 @@ import torch
 
 from vggt_qwen3_tpu.ops.flash_attention import flash_attention as jax_flash
 from vggt_qwen3_tpu.ops.flash_attention import flash_attention_with_lse as jax_flash_lse
+import chip_smoke
 from vggt_qwen3_tpu_torch.ops import flash_attention as pflash
+from vggt_qwen3_tpu_torch.ops import kernel_build
 from vggt_qwen3_tpu_torch.utils.agreement import agreement
 from vggt_qwen3_tpu_torch.utils.from_jax import array_to_torch
 
@@ -191,3 +193,141 @@ def test_card_path_goes_through_the_autograd_function(monkeypatch):
     with torch.no_grad():  # inference: the kernel alone, no lse written
         calls.clear()
         assert pflash.flash_attention(q, k, v).grad_fn is None and calls == ["fwd"]
+
+
+def _stub_backward_launches(monkeypatch):
+    """The backward kernels' launches replaced by a recorder (their library
+    functions get every argument, pointers as ints, and return 0), and the
+    padded lse/delta buffers the wrapper makes kept for inspection."""
+    calls, made = {}, []
+
+    def lib(name):
+        def fn(*args):
+            calls[name] = args
+            return 0
+        return fn
+
+    buffer = pflash._stat_buffer
+
+    def recording(*args):
+        made.append(buffer(*args))
+        return made[-1]
+
+    monkeypatch.setattr(pflash, "_bwd_lib", lib)
+    monkeypatch.setattr(pflash, "_stream", lambda x: 0)
+    monkeypatch.setattr(pflash, "_stat_buffer", recording)
+    return calls, made
+
+
+@pytest.mark.parametrize("S", [1, 128, 1029])
+def test_backward_kernels_get_lse_and_delta_padded_to_whole_tiles(monkeypatch, S):
+    """lse and delta reach both kernels in [B, NH, S_pad] buffers (S_pad the
+    next multiple of 128, so every tile's rows are a 16-byte aligned bulk
+    copy) with the same values up to S, −1e30 (a dead row) and 0 past it:
+    delta, rowsum(dO·out) − g_lse, written straight into its buffer."""
+    calls, made = _stub_backward_launches(monkeypatch)
+    monkeypatch.setattr(pflash, "_on_card", lambda x: True)
+    g = torch.Generator().manual_seed(4)
+    B, NH, NKV, D = 2, 4, 2, 64
+    q, d_out, out = (torch.randn(B, S, NH, D, generator=g).bfloat16() for _ in range(3))
+    k, v = (torch.randn(B, S, NKV, D, generator=g).bfloat16() for _ in range(2))
+    lse, g_lse = torch.randn(B, NH, S, generator=g), torch.randn(B, NH, S, generator=g)
+    lse[1, 2] = pflash.NEG_INF
+    n0 = (pflash.dq_launches, pflash.dkv_launches)
+    dq, dk, dv = pflash.flash_attention_backward(q, k, v, None, None, out, lse, d_out, g_lse)
+    assert (pflash.dq_launches, pflash.dkv_launches) == (n0[0] + 1, n0[1] + 1)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    delta_p, lse_p = made
+    S_pad = -(-S // 128) * 128
+    assert lse_p.shape == delta_p.shape == (B, NH, S_pad) and lse_p.dtype == delta_p.dtype == torch.float32
+    assert lse_p.is_contiguous() and delta_p.is_contiguous()
+    delta = (d_out.float() * out.float()).sum(-1).transpose(1, 2) - g_lse
+    assert torch.equal(lse_p[..., :S], lse) and torch.equal(delta_p[..., :S], delta)
+    assert (lse_p[..., S:] == -1e30).all() and not delta_p[..., S:].any()
+    for name in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
+        args = calls[name]
+        assert args[4:6] == (lse_p.data_ptr(), delta_p.data_ptr()), name
+        n_out = 1 if name == "flash_bwd_dq_bf16" else 2
+        assert args[8 + n_out:8 + n_out + 7] == (B, S, S, NH, NKV, D, S_pad), name
+
+
+def test_backward_kernels_refuse_an_unpadded_delta(monkeypatch):
+    """delta must come as its padded [B, NH, S_pad] buffer: the kernels read
+    whole tiles of it."""
+    calls, _ = _stub_backward_launches(monkeypatch)
+    B, S, NH, D = 2, 8, 2, 64
+    x = torch.zeros(B, S, NH, D, dtype=torch.bfloat16)
+    bounds = torch.zeros(B, dtype=torch.int32), torch.full((B,), S, dtype=torch.int32)
+    with pytest.raises(ValueError, match="delta must be a contiguous f32"):
+        pflash.flash_bwd_kernels(x, x, x, *bounds, torch.zeros(B, NH, S), torch.zeros(B, NH, S), x, False, 0.125)
+    assert not calls
+
+
+def test_backward_kernels_refuse_views_tma_cannot_address(monkeypatch):
+    """q, k, v or d_out that a TMA tensor map cannot address is refused, with
+    a message that says why, before anything is launched: a broadcast (stride
+    0) dimension, a base that is not 16-byte aligned, a row stride that is
+    not a multiple of 16 bytes."""
+    calls, _ = _stub_backward_launches(monkeypatch)
+    B, S, NH, D = 2, 8, 2, 64
+    ok = torch.zeros(B, S, NH, D, dtype=torch.bfloat16)
+    stats = torch.zeros(B, NH, S), torch.zeros(B, NH, S)
+    bounds = torch.zeros(B, dtype=torch.int32), torch.full((B,), S, dtype=torch.int32)
+    wide = torch.zeros(B, S, NH, D + 8, dtype=torch.bfloat16)
+    bad = {
+        "a TMA tensor map cannot address": torch.zeros(1, S, NH, D, dtype=torch.bfloat16).expand(B, S, NH, D),
+        "16-byte aligned base": wide[..., 4:4 + D],
+        "multiples of 8 elements": torch.zeros(B, S, NH, D + 4, dtype=torch.bfloat16)[..., :D],
+    }
+    for why, x in bad.items():
+        for pos in range(4):
+            ops = [ok, ok, ok, ok]
+            ops[pos] = x
+            with pytest.raises(ValueError, match=why):
+                pflash.flash_bwd_kernels(*ops[:3], *bounds, *stats, ops[3], False, 0.125)
+    assert not calls
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (1, 8, 2, 64)])
+def test_backward_copies_a_cotangent_tma_cannot_address(monkeypatch, shape):
+    """Autograd may hand the backward a broadcast cotangent (the gradient of
+    a sum; one broadcast over the batch has a contiguous head dim): the
+    wrapper copies it before the kernels read it."""
+    seen = []
+    monkeypatch.setattr(pflash, "_on_card", lambda x: True)
+    monkeypatch.setattr(pflash, "flash_bwd_kernels", lambda *a: seen.append(a[7]) or (None, None, None))
+    B, S, NH, D = 2, 8, 2, 64
+    x = torch.zeros(B, S, NH, D, dtype=torch.bfloat16)
+    d_out = torch.ones(shape, dtype=torch.bfloat16).expand(B, S, NH, D)
+    pflash.flash_attention_backward(x, x, x, None, None, x, torch.zeros(B, NH, S), d_out)
+    assert seen[0].is_contiguous() and torch.equal(seen[0], d_out)
+
+
+@pytest.mark.parametrize("pos", [0, 1, 2])
+def test_backward_copies_a_broadcast_input_the_forward_takes(monkeypatch, pos):
+    """The forward's kernel reads a broadcast (stride 0) q, k or v through its
+    strides; a TMA map cannot address one, so the backward copies it rather
+    than refusing what the forward took."""
+    seen = []
+    monkeypatch.setattr(pflash, "_on_card", lambda x: True)
+    monkeypatch.setattr(pflash, "flash_bwd_kernels", lambda *a: seen.append(a) or (None, None, None))
+    B, S, NH, D = 2, 8, 2, 64
+    x = torch.zeros(B, S, NH, D, dtype=torch.bfloat16)
+    ops = [x, x, x]
+    ops[pos] = torch.randn(1, S, NH, D).bfloat16().expand(B, S, NH, D)
+    pflash.flash_attention_backward(*ops, None, None, x, torch.zeros(B, NH, S), x)
+    got = seen[0][pos]
+    assert got.is_contiguous() and torch.equal(got, ops[pos])
+    assert all(seen[0][i] is x for i in range(3) if i != pos)
+
+
+@pytest.mark.parametrize("variant", sorted(chip_smoke.FLASH_BWD_TILES))
+def test_flash_bwd_tile_variants_name_defines_the_source_reads(variant):
+    """The tile sweep (``chip_smoke.py --flash_bwd_tiles``) builds each variant
+    with nvcc defines; ``kernel_build.rebuild`` refuses a define the source
+    does not read under ``#ifndef``, so a renamed size cannot time the
+    shipped build under another name."""
+    src = (kernel_build.CSRC / "flash_bwd.cu").read_text()
+    assert all(f"#ifndef {k}\n" in src for k in chip_smoke.FLASH_BWD_TILES[variant])
+    with pytest.raises(ValueError, match="reads no define"):
+        kernel_build.rebuild("flash_bwd", {**chip_smoke.FLASH_BWD_TILES[variant], "NO_SUCH_SIZE": 1})

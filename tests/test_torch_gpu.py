@@ -248,6 +248,105 @@ def test_block_verify_wrapper_raises_on_shapes_the_kernel_does_not_take():
         pdecode.gqa_block_verify_attention(q.transpose(1, 2), k, v, 0, start, off)
 
 
+
+# the tile edges of kernels 8 and 9 (128-row blocks, 64- and 128-row stages)
+EDGE_ST = [(1, 1), (5, 5), (127, 127), (128, 128), (129, 129), (1029, 1029), (5, 129), (129, 5), (127, 1029),
+           (1029, 128)]
+
+
+def _edge_inputs(g, S, T, NH, NKV, D):
+    """Three batch rows: every key; a frontier [T/3, T - T/5) (with
+    ``causal`` its first queries see no key); no key at all (every query
+    dead). 1e4 in every K/V slot outside the frontier."""
+    B = 3
+    q = torch.randn(B, S, NH, D, device="cuda", generator=g).bfloat16()
+    k = torch.randn(B, T, NKV, D, device="cuda", generator=g).bfloat16()
+    v = torch.randn(B, T, NKV, D, device="cuda", generator=g).bfloat16()
+    d_out = torch.randn(B, S, NH, D, device="cuda", generator=g).bfloat16()
+    start = torch.tensor([0, T // 3, 0], dtype=torch.int32, device="cuda")
+    end = torch.tensor([T, T - T // 5, 0], dtype=torch.int32, device="cuda")
+    pos = torch.arange(T, device="cuda")
+    outside = (pos[None] < start[:, None]) | (pos[None] >= end[:, None])  # [B, T]
+    k.masked_fill_(outside[:, :, None, None], 1e4)
+    v.masked_fill_(outside[:, :, None, None], 1e4)
+    return q, k, v, d_out, start, end, outside
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,T", EDGE_ST)
+def test_flash_backward_kernels_at_tile_edges(S, T, D, G, causal):
+    """Kernels 8 and 9 against the plain backward where the tiles are ragged
+    (S, T = 1, 5, 127, 128, 129, 1029, S != T too), with GQA groups 1 and 4,
+    a frontier and dead rows: dead query rows and keys no query sees get
+    exactly 0."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(S * 7919 + T * 31 + D + G + causal)
+    NKV = 2
+    q, k, v, d_out, start, end, outside = _edge_inputs(g, S, T, NKV * G, NKV, D)
+    kw = dict(causal=causal, kv_start=start, kv_end=end)
+    out, lse = pflash.flash_attention_with_lse(q, k, v, **kw)
+    got = pflash.flash_attention_backward(q, k, v, start, end, out, lse, d_out, causal=causal)
+    torch.cuda.synchronize()
+    ref = pflash.flash_attention_backward_plain(q, k, v, start, end, out, lse, d_out, causal=causal)
+    seen = ~outside[:, None, :]  # [B, S, T]: the keys each query sees
+    if causal:
+        seen = seen & (torch.arange(T, device="cuda")[None, :] <= torch.arange(S, device="cuda")[:, None])
+    n_keys = seen.sum(-1)
+    one_key = bool((n_keys[n_keys > 0] == 1).all())
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == r.shape and a.dtype == torch.bfloat16, name
+        if one_key and name != "dv":
+            # every live query sees one key (T = 1, or S = 1 with causal): p = 1
+            # and dp = delta, so ds, dq and dk are 0 in exact arithmetic; both
+            # versions give f32 rounding of dp - delta (|dp| ~ 8 here), of order
+            # 1e-7, which no relative tolerance can compare
+            assert max(a.abs().max().item(), r.abs().max().item()) <= 1e-5, (name, a.abs().max(), r.abs().max())
+            continue
+        assert agreement(a, r)["ok"], (name, agreement(a, r))
+    dq, dk, dv = got
+    dead = (lse <= -1e29).all(1)  # [B, S]: rows with no valid key
+    assert dead[2].all() and not dq[dead].any()
+    assert not dk[outside].any() and not dv[outside].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_kernels_read_strided_qkv_views(D):
+    """q/k/v as views into one packed qkv (``qkv.chunk``, as the VGGT block
+    hands them over) at the frame length 1029, against contiguous copies
+    through the plain backward."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(14 + D)
+    B, T, NH = 2, 1029, 4
+    qkv = torch.randn(B, T, 3 * NH * D, device="cuda", generator=g).bfloat16()
+    q, k, v = (t.reshape(B, T, NH, D) for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous() and not v.is_contiguous()
+    d_out = torch.randn(B, T, NH, D, device="cuda", generator=g).bfloat16()
+    out, lse = pflash.flash_attention_with_lse(q, k, v)
+    got = pflash.flash_attention_backward(q, k, v, None, None, out, lse, d_out)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    ref = pflash.flash_attention_backward_plain(qc, kc, vc, None, None, out, lse, d_out)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert agreement(a, r)["ok"], (name, agreement(a, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernels_repeat_bit_for_bit(causal):
+    """No atomics: two runs on the same inputs give the same dq, dk and dv
+    bit for bit (GQA group 4, so dk/dv sum over four heads)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v, d_out, start, end, _ = _edge_inputs(g, 1029, 1029, 8, 2, 64)
+    out, lse = pflash.flash_attention_with_lse(q, k, v, causal=causal, kv_start=start, kv_end=end)
+    a = pflash.flash_attention_backward(q, k, v, start, end, out, lse, d_out, causal=causal)
+    b = pflash.flash_attention_backward(q, k, v, start, end, out, lse, d_out, causal=causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
 @pytest.mark.gpu
 def test_wrappers_raise_on_shapes_the_kernels_do_not_take():
     _need_card()

@@ -167,7 +167,7 @@ def _bwd_lib(name: str):
     if fn.argtypes is None:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         n_out = 1 if name == "flash_bwd_dq_bf16" else 2
-        fn.argtypes = [P] * (4 + 4 + n_out) + [I] * 6 + [LL] * 12 + [ctypes.c_float, I, P]
+        fn.argtypes = [P] * (4 + 4 + n_out) + [I] * 7 + [LL] * 12 + [ctypes.c_float, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -181,6 +181,25 @@ def _check_operand(name: str, x: torch.Tensor, device) -> None:
         raise ValueError(
             f"flash_attention: {name} needs a contiguous head dim, strides that are "
             f"multiples of 8 elements and a 16-byte aligned base (strides {x.stride()})"
+        )
+
+
+def _tma_addressable(x: torch.Tensor) -> bool:
+    """Whether the backward kernels' TMA tensor maps can address the
+    [B, S, H, D] view x: a contiguous head dim, a 16-byte aligned base, the
+    other strides multiples of 16 bytes below 2^40 bytes, and none 0
+    (broadcast) on a dimension of more than one element."""
+    es = x.element_size()
+    return x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
+        (s > 0 or n == 1) and s * es % 16 == 0 and s * es < 2**40 for s, n in zip(x.stride()[:-1], x.shape[:-1]))
+
+
+def _check_tma(name: str, x: torch.Tensor, device) -> None:
+    _check_operand(name, x, device)
+    if not _tma_addressable(x):
+        raise ValueError(
+            f"flash_attention backward: a TMA tensor map cannot address {name} "
+            f"(shape {tuple(x.shape)}, strides {x.stride()}): it needs positive strides below 2^40 bytes"
         )
 
 
@@ -207,6 +226,22 @@ def _strides3(x):
     return x.stride(0), x.stride(1), x.stride(2)
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+BWD_STAT_TILE = 128  # lse/delta rows hold whole query tiles of both backward kernels (flash_bwd.cu refuses others)
+
+
+def _stat_buffer(B: int, NH: int, S: int, fill: float, device) -> torch.Tensor:
+    """A [B, NH, S_pad] f32 buffer of ``fill``, S_pad the next multiple of
+    BWD_STAT_TILE: the backward kernels read lse and delta a tile at a time
+    by bulk copies, which need 16-byte aligned whole slices (rows of S = 1029
+    are not). Past S, lse is −1e30 (a dead row) and delta 0."""
+    S_pad = -(-S // BWD_STAT_TILE) * BWD_STAT_TILE
+    return torch.full((B, NH, S_pad), fill, dtype=torch.float32, device=device)
+
+
 def flash_fwd_kernel(q, k, v, start, end, causal: bool, scale: float, with_lse: bool):
     """Launch ``csrc/flash_fwd.cu``: (out [B, S, NH, D] bf16, lse [B, NH, S]
     f32 or None). start/end are [B] int32 on the card."""
@@ -221,8 +256,7 @@ def flash_fwd_kernel(q, k, v, start, end, causal: bool, scale: float, with_lse: 
         start.data_ptr(), end.data_ptr(),
         B, S, T, NH, NKV, D,
         *_strides3(q), *_strides3(k), *_strides3(v),
-        float(scale), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), int(bool(causal)), _stream(q),
     )
     kernel_build.check(rc, "flash_fwd")
     launches += 1
@@ -231,16 +265,24 @@ def flash_fwd_kernel(q, k, v, start, end, causal: bool, scale: float, with_lse: 
 
 def flash_bwd_kernels(q, k, v, start, end, lse, delta, d_out, causal: bool, scale: float):
     """Launch ``csrc/flash_bwd.cu``'s two kernels: (dq, dk, dv) in bf16.
-    lse and delta are [B, NH, S] f32, contiguous."""
+    lse is [B, NH, S] f32, copied here into a padded buffer; delta is one
+    already, [B, NH, S_pad] f32 (:func:`_stat_buffer`), as
+    :func:`flash_attention_backward` writes it. q, k, v and d_out are read
+    through TMA tensor maps over their strides (:func:`_check_tma`)."""
     global dq_launches, dkv_launches
     B, S, NH, D = q.shape
     T, NKV = k.shape[1], k.shape[2]
-    _check_operand("d_out", d_out, q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    common = (B, S, T, NH, NKV, D, *_strides3(q), *_strides3(k), *_strides3(v), *_strides3(d_out),
-              float(scale), int(bool(causal)), stream)
+    for name, x in (("q", q), ("k", k), ("v", v), ("d_out", d_out)):
+        _check_tma(name, x, q.device)
+    lse_p = _stat_buffer(B, NH, S, NEG_INF, q.device)
+    lse_p[..., :S] = lse
+    if delta.shape != lse_p.shape or delta.dtype != torch.float32 or not delta.is_contiguous():
+        raise ValueError(f"flash_attention backward: delta must be a contiguous f32 {tuple(lse_p.shape)}, "
+                         f"got {delta.dtype} {tuple(delta.shape)}")
+    common = (B, S, T, NH, NKV, D, lse_p.shape[-1], *_strides3(q), *_strides3(k), *_strides3(v),
+              *_strides3(d_out), float(scale), int(bool(causal)), _stream(q))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
-           lse.data_ptr(), delta.data_ptr(), start.data_ptr(), end.data_ptr())
+           lse_p.data_ptr(), delta.data_ptr(), start.data_ptr(), end.data_ptr())
     dq = torch.empty((B, S, NH, D), dtype=torch.bfloat16, device=q.device)
     kernel_build.check(_bwd_lib("flash_bwd_dq_bf16")(*ins, dq.data_ptr(), *common), "flash_bwd_dq")
     dq_launches += 1
@@ -284,14 +326,17 @@ def flash_attention_backward(q, k, v, kv_start, kv_end, out, lse, d_out, g_lse=N
         return flash_attention_backward_plain(q, k, v, kv_start, kv_end, out, lse, d_out, g_lse,
                                               causal=causal, scale=scale)
     _check_kernel_shapes(q, k, v)
-    B, T = q.shape[0], k.shape[1]
-    delta = (d_out.float() * out.float()).sum(-1).transpose(1, 2)
+    B, S, NH, _ = q.shape
+    T = k.shape[1]
+    delta = _stat_buffer(B, NH, S, 0.0, q.device)  # δ goes straight into the kernels' padded rows
+    torch.sum(d_out.float() * out.float(), -1, out=delta[..., :S].transpose(1, 2))
     if g_lse is not None:
-        delta = delta - g_lse.float()
-    if d_out.stride(-1) != 1 or any(s % 8 for s in d_out.stride()[:-1]):
-        d_out = d_out.contiguous()
+        delta[..., :S] -= g_lse.float()
+    # broadcast views (autograd's cotangents, expanded inputs) are copied for the TMA maps
+    q, k, v, d_out = (x if _tma_addressable(x) else x.clone(memory_format=torch.contiguous_format)
+                      for x in (q, k, v, d_out))
     return flash_bwd_kernels(q, k, v, _bounds(kv_start, B, 0, q.device), _bounds(kv_end, B, T, q.device),
-                             lse.contiguous(), delta.contiguous(), d_out, causal, scale)
+                             lse, delta, d_out, causal, scale)
 
 
 class FlashAttention(torch.autograd.Function):

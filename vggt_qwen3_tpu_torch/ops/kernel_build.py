@@ -1,8 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` at first use and load them.
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and compiles on
-its own into ``build/lib<name>-<hash>.so`` (the hash is of the source, so an
-edited source rebuilds), loaded with ``ctypes``. Nothing here runs at import:
+its own into ``build/lib<name>-<hash>.so`` (the hash is of the source and the
+flags, so an edited source rebuilds), loaded with ``ctypes``. Nothing here runs at import:
 the CPU tests import every module, and a build is reached only through a
 wrapper handed a CUDA tensor.
 """
@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -48,14 +48,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def _target(name: str) -> Path:
+def _flags(defines: Optional[Dict[str, int]]) -> List[str]:
+    return NVCC_FLAGS + [f"-D{k}={v}" for k, v in (defines or {}).items()]
+
+
+def _target(name: str, defines: Optional[Dict[str, int]] = None) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str]) -> List[KernelLibrary]:
+def build(names: Iterable[str], defines: Optional[Dict[str, int]] = None) -> List[KernelLibrary]:
     """Compile (one ``nvcc`` per source, all started together) and load.
+    ``defines`` become ``-D`` flags of every source built here.
 
     Raises with the compiler's output if a build fails."""
     names = list(names)
@@ -66,12 +71,12 @@ def build(names: Iterable[str]) -> List[KernelLibrary]:
     procs = {}
     t0 = time.perf_counter()
     for n in todo:
-        out = _target(n)
+        out = _target(n, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[n] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{n}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), tmp, out)
     # wait for every compiler before raising, so none outlives a failed build
@@ -82,8 +87,21 @@ def build(names: Iterable[str]) -> List[KernelLibrary]:
         os.replace(tmp, out)
     seconds = time.perf_counter() - t0
     for n in todo:
-        _LIBS[n] = KernelLibrary(n, _target(n), seconds if n in procs else 0.0, logs.get(n, ""))
+        _LIBS[n] = KernelLibrary(n, _target(n, defines), seconds if n in procs else 0.0, logs.get(n, ""))
     return [_LIBS[n] for n in names]
+
+
+def rebuild(name: str, defines: Dict[str, int]) -> KernelLibrary:
+    """Build ``csrc/<name>.cu`` with ``defines`` (macros the source reads
+    under ``#ifndef``, such as tile sizes) and load it in place of the loaded
+    build: every launch through the wrappers then runs it. Empty ``defines``
+    give the source's own build back."""
+    src = (CSRC / f"{name}.cu").read_text()
+    unread = [k for k in defines if f"#ifndef {k}\n" not in src]
+    if unread:
+        raise ValueError(f"{name}.cu reads no define {unread}")
+    _LIBS.pop(name, None)
+    return build([name], defines)[0]
 
 
 def load(name: str) -> KernelLibrary:
@@ -92,6 +110,9 @@ def load(name: str) -> KernelLibrary:
 
 
 def check(rc: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    """Raise on a non-zero code returned by a launch: a ``cudaError_t``, or
+    10000 + the ``CUresult`` of a TMA tensor map that could not be encoded."""
+    if rc >= 10000:
+        raise RuntimeError(f"{what} launch failed: cuTensorMapEncodeTiled returned CUresult {rc - 10000}")
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError_t {rc}")
