@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--max_new_tokens 32]
-    python3 chip_smoke.py --flash_bwd_tiles
+    python3 chip_smoke.py --tiles flash_bwd|decode_matmul [--package_root DIR]
+    python3 chip_smoke.py --w8_gemm [--package_root DIR]
 
 Run from the root of a checkout. It:
 
@@ -10,7 +11,8 @@ Run from the root of a checkout. It:
 2. builds the five CUDA sources of the port from ``vggt_qwen3_tpu_torch/csrc``
    (flash forward, the two flash backward kernels, decode attention,
    block-verify attention, the four W8 decode kernels) with ``nvcc`` for
-   sm_90a, in parallel, and prints the ptxas report;
+   sm_90a, in parallel, prints the ptxas report and fails on a spill in the
+   sources redesigned for Hopper (``TILES``: flash_bwd, decode_matmul);
 3. holds each kernel against its plain PyTorch version at its main path's
    shapes (``utils.agreement``, tol 2e-2 scaled to the reference: every
    element within 2e-2·max|ref| + 2e-2·|ref|, and ‖err‖₂ ≤ 5e-3·‖ref‖₂; rows
@@ -27,7 +29,14 @@ Run from the root of a checkout. It:
    The block-verify kernel runs at the ARKit verify shape (q [4, 7, 32, 128]
    over [36, 4, 8, 832, 128]) with bf16 and int8 caches, ragged starts and
    offsets, a row whose first queries see no slot (exactly 0) and 1e4 in
-   every slot no query sees. The flash backward kernels (dq; dk/dv) and the
+   every slot no query sees. The W8 layer kernels run at the bench shape
+   (368 rows) and QKV and WO also at 8 rows (the QA path's W8 decode step),
+   the MLP's two launches timed apart (gate/up; the down w8_gemm, beside
+   ``torch.mm`` for the down projection alone), two launches of each on the
+   same inputs equal bit for bit; the kernel's cut of each w8_gemm launch
+   (``w8_gemm_plan``) and the bounds of the MLP's two launches and of the
+   8-row shapes are printed on a line of their own. The flash backward
+   kernels (dq; dk/dv) and the
    forward's lse output run at the training shapes — VGGT frame
    [16, 1029, 16, 64] and global [2, 8232, 16, 64] — and at a causal,
    left-padded GQA shape [2, 512, 32/8, 128], with 1e4 in every K/V slot
@@ -94,10 +103,16 @@ Run from the root of a checkout. It:
 Any failure raises and the script exits non-zero. Without a CUDA device, or
 outside a checkout of the repo, it exits non-zero before printing a result.
 
-With ``--flash_bwd_tiles`` it runs only the flash backward's checks of step
-3, once for each build of ``csrc/flash_bwd.cu`` in ``FLASH_BWD_TILES`` (tile
-and ring sizes at D = 64, set with nvcc defines), the source's own sizes
-first and last so that the spread of the call shows beside the differences.
+With ``--tiles SOURCE`` it runs only the checks of step 3 that time the
+kernels of ``csrc/SOURCE.cu``, once for each build in ``TILES[SOURCE]``
+(tile, ring and cut sizes set with nvcc defines), the source's own first and
+last so that the spread of the call shows beside the differences:
+``flash_bwd`` runs the flash backward at its three shapes, ``decode_matmul``
+the W8 layer kernels (QKV and WO at 368 and 8 rows, the MLP's two launches;
+no head). ``--w8_gemm`` is the latter with the source's own build alone.
+``--package_root DIR`` imports the port from DIR instead (another tree, such
+as the parent commit unpacked with ``git archive``), so that two trees are
+timed on one card: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -138,6 +153,18 @@ FLASH_BWD_TILES = {
     "dkv_4_stages": {"DKV_STAGES": 4},
     "dq_64_keys": {"DQ_KEYS": 64},
     "dq_2_stages": {"DQ_STAGES": 2},
+}
+# other cuts of w8_gemm (csrc/decode_matmul.cu), as the nvcc defines it
+# reads (its own, gemm_plan there: K parts of at most 10 steps for row groups
+# of up to 64 rows; wider groups in 4 parts, or in one with groups of at most
+# 80 rows when K has fewer than 48 steps)
+W8_GEMM_TILES = {
+    "one_part_rows_96": {"W8_ONE_PART_ROWS": 96},
+    "one_part_rows_64": {"W8_ONE_PART_ROWS": 64},
+    "wide_parts_2": {"W8_WIDE_PARTS": 2},
+    "wide_parts_8": {"W8_WIDE_PARTS": 8},
+    "small_part_steps_5": {"W8_SMALL_PART_STEPS": 5},
+    "small_part_steps_20": {"W8_SMALL_PART_STEPS": 20},
 }
 W8_SOURCE = "vggt_qwen3_tpu_torch/csrc/decode_matmul.cu"
 W8_REPLACES = {
@@ -274,6 +301,25 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def host_ms(fn, iters: int, repeats: int = 5) -> float:
+    """Host time of one call of ``fn``: the host clock over ``iters`` calls
+    issued back to back without waiting for the device (the launch queue
+    holds them), so that the device's time does not enter it; the least of
+    ``repeats`` such batches (a shared host's other work only adds time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, time.perf_counter() - t)
+        torch.cuda.synchronize()
+    return best * 1e3 / iters
+
+
 def device_ms(fn, iters: int) -> float:
     """Device time of one call of ``fn``: the sum of its kernels' durations as
     ``torch.profiler`` records them, over ``iters`` calls. Unlike
@@ -282,17 +328,8 @@ def device_ms(fn, iters: int) -> float:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / 1e3 / iters
+    by = device_ms_by_kernel(fn, iters)
+    return sum(by.values())
 
 
 def sm_clock_hz() -> float:
@@ -380,23 +417,27 @@ def check_flash(name, B, S, T, NH, NKV, D, *, causal, starts, gen):
 
 
 def device_ms_by_kernel(fn, iters: int) -> dict:
-    """Device time of one call of ``fn`` by kernel name (``torch.profiler``)."""
+    """Device time of one call of ``fn`` by kernel name (``torch.profiler``).
+    A profiler session now and then records no device activity at all (after
+    many sessions in one process); such a session is run again, twice at
+    most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    if not by:
-        raise AssertionError("the profiler saw no device time")
-    return by
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        if by:
+            return by
+    raise AssertionError("the profiler saw no device time")
 
 
 def check_flash_backward(name, B, S, NH, NKV, D, *, causal, starts, ends, gen):
@@ -533,22 +574,56 @@ def backward_checks(stage, gen):
     }
 
 
-def flash_bwd_tiles(stage, gen) -> dict:
-    """backward_checks for each build of csrc/flash_bwd.cu in FLASH_BWD_TILES,
-    the source's own sizes first and last: {variant: {shape: (dq ms, dk/dv
-    ms)}}, the second run of the source's own under "own (again)"."""
+def flash_bwd_times(stage, gen) -> dict:
+    """backward_checks' device ms: {shape: (dq, dk/dv)}."""
+    return {shape: (r["flash_bwd_dq"]["ms"], r["flash_bwd_dkv"]["ms"])
+            for shape, r in backward_checks(stage, gen).items()}
+
+
+def w8_gemm_times(stage, gen) -> dict:
+    """check_w8 without the head at the bench shape: the w8_gemm figures
+    (device, call and host ms of QKV and WO at 368 and 8 rows and of the
+    MLP's down launch, beside torch.mm's), w8_swiglu's device ms, and each
+    w8_gemm launch's plan."""
+    res = check_w8(stage.model.text, 368, gen, head=False)
+    q, o, m = res["fused_qkv_w8"], res["fused_linear_w8"], res["fused_mlp_w8"]
+    times = {}
+    for key, r in (("qkv", q), ("wo", o)):
+        for pre, sub in (("", ""), ("m8_", "_m8")):
+            times.update({f"{key}{sub}": r[f"{pre}ms"], f"{key}{sub}_mm": r[f"{pre}library_ms"],
+                          f"{key}{sub}_call": r[f"{pre}call_ms"], f"{key}{sub}_host": r[f"{pre}host_ms"]})
+    times.update(down=m["down_ms"], down_mm=m["down_library_ms"], swiglu=m["swiglu_ms"],
+                 plans=res["plans_and_bounds"]["plans"])
+    return times
+
+
+# csrc/<source>.cu -> (its variants as nvcc defines, the check that times a build)
+TILES = {"flash_bwd": (FLASH_BWD_TILES, flash_bwd_times), "decode_matmul": (W8_GEMM_TILES, w8_gemm_times)}
+
+
+def ptxas_spills(lib) -> list:
+    """The lines of a build's ptxas report that show a spill."""
+    return [ln.strip() for ln in lib.ptxas_log.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln]
+
+
+def tiles(source: str, stage, gen, variants: bool = True) -> dict:
+    """TILES[source]'s check for each build of csrc/<source>.cu in its table,
+    the source's own defines first and last ("own", "own (again)"); with
+    ``variants`` false, the source's own build once. Fails on a ptxas spill."""
     from vggt_qwen3_tpu_torch.ops import kernel_build
 
+    table, check = TILES[source]
+    runs = [("own", {}), *table.items(), ("own (again)", {})] if variants else [("own", {})]
     times = {}
-    for name, defines in [("own", {}), *FLASH_BWD_TILES.items(), ("own (again)", {})]:
-        lib = kernel_build.rebuild("flash_bwd", defines)
-        spills = [ln.strip() for ln in lib.ptxas_log.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln]
+    for name, defines in runs:
+        lib = kernel_build.rebuild(source, defines)
+        spills = ptxas_spills(lib)
         if spills:
-            raise AssertionError(f"flash_bwd {name}: ptxas spills: {spills}")
-        res = backward_checks(stage, gen)
-        times[name] = {shape: (r["flash_bwd_dq"]["ms"], r["flash_bwd_dkv"]["ms"]) for shape, r in res.items()}
-        print(f"flash_bwd_tiles {name} {json.dumps(defines)} {json.dumps(times[name])}", flush=True)
-    kernel_build.rebuild("flash_bwd", {})
+            raise AssertionError(f"{source} {name}: ptxas spills: {spills}")
+        times[name] = check(stage, gen)
+        print(f"tiles {source} {name} {json.dumps(defines)} {json.dumps(times[name])}", flush=True)
+    if variants:
+        kernel_build.rebuild(source, {})
     return times
 
 
@@ -679,11 +754,35 @@ def rand_w8(gen, *shape):
                       ).bfloat16()}
 
 
-def check_w8(cfg, M: int, gen) -> dict:
+def w8_gemm_plan(M: int, K: int):
+    """The kernel's own cut of a w8_gemm launch (rows, row groups, K parts,
+    ring stages, shared memory bytes), or None for a build without
+    ``w8_gemm_plan`` (a tree from before it)."""
+    import ctypes
+
+    from vggt_qwen3_tpu_torch.ops import decode_matmul as dm
+
+    lib = dm._lib()
+    if not hasattr(lib, "w8_gemm_plan"):
+        return None
+    buf = (ctypes.c_int * 5)()
+    if lib.w8_gemm_plan(M, K, ctypes.addressof(buf)) != 0:
+        raise AssertionError(f"w8_gemm_plan({M}, {K}) refused")
+    return list(buf)
+
+
+def check_w8(cfg, M: int, gen, m_small: int = 8, *, head: bool = True) -> dict:
     """The four W8 decode kernels at the bench shape (``cfg`` = Qwen3-4B,
     M = 368 rows), each against its plain version, timed with the layer
     index turning over the layers; the yardstick is ``torch.mm`` over a bf16
-    copy dequantized outside the timed region."""
+    copy dequantized outside the timed region. QKV and WO also at
+    ``m_small`` rows (the QA path's W8 decode step), the MLP's two launches
+    (gate/up, then the down w8_gemm) timed apart by kernel name beside
+    ``torch.mm`` for the down projection alone; two launches of each layer
+    kernel on the same inputs must give the same bits. ``head``: also the
+    head. Under "plans_and_bounds" (printed on a line of its own, never in
+    a kernel's record): each w8_gemm launch's plan and the bounds other than
+    each record's own ``bound_ms``."""
     import torch
     import torch.nn.functional as F
 
@@ -699,21 +798,26 @@ def check_w8(cfg, M: int, gen) -> dict:
             "scale": (torch.rand(V, 1, device="cuda", generator=gen) * 2e-3 + 1e-3).bfloat16()}  # per vocab row
     x = torch.randn(M, H, device="cuda", generator=gen).bfloat16()
     a = torch.randn(M, NQ, device="cuda", generator=gen).bfloat16()
+    act = (torch.randn(M, Fd, device="cuda", generator=gen) * 0.05).bfloat16()  # an MLP activation's scale
     xm = (x * 0.05).contiguous()  # the MLP's input: outputs of the order of one
     li = L - 1
     turn = layer_turns(L)
     out = {}
 
-    def measure(name, kernel, plain, library, flops, nbytes, compare):
+    def measure(name, rows, kernel, plain, library, flops, nbytes, compare):
         got, ref = kernel(li), plain(li)
+        again = kernel(li)
         torch.cuda.synchronize()
         agree = compare(got, ref)
+        if not all(torch.equal(g, h) for g, h in zip(got, again)):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
         res = dict(**agree, ms=device_ms(lambda: kernel(turn()), iters=2 * L),
                    call_ms=cuda_ms(lambda: kernel(turn()), iters=2 * L),
+                   host_ms=host_ms(lambda: kernel(turn()), iters=2 * L),
                    plain_ms=device_ms(lambda: plain(turn()), iters=4),
                    library_ms=device_ms(lambda: library(turn()), iters=2 * L))
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
-        res["shape"] = f"M={M} " + name
+        res["shape"] = f"M={rows} " + name
         print(f"{name.split()[0]} {json.dumps(res)}", flush=True)
         return res
 
@@ -721,22 +825,38 @@ def check_w8(cfg, M: int, gen) -> dict:
         return lambda got, ref: held_to_plain(name, torch.cat([g.flatten() for g in got]),
                                               torch.cat([r.flatten() for r in ref]))
 
+    plans, bounds = {}, {}
+
+    def with_small(name, res, small, K):
+        """QKV/WO's measured figures at m_small rows beside the bench
+        shape's; their plans and the small shape's bound go aside."""
+        res.update({f"m{m_small}_{k}": small[k] for k in ("max_abs_err", "rel_rms", "ms", "call_ms", "host_ms",
+                                                          "plain_ms", "library_ms")})
+        bounds[f"{name}_m{m_small}"] = (small["bound_ms"], small["bound_by"])
+        plans[name], plans[f"{name}_m{m_small}"] = w8_gemm_plan(M, K), w8_gemm_plan(m_small, K)
+        return res
+
     w_qkv = torch.cat([quant.dequantize(w[k]) for k in ("wq", "wk", "wv")], dim=-1)
-    out["fused_qkv_w8"] = measure(
-        f"fused_qkv_w8 x[{M},{H}] wq|wk|wv[{L},{H},{NQ}+{NKV}+{NKV}]",
-        lambda i: dm.fused_qkv_w8(x, w["wq"], w["wk"], w["wv"], i),
-        lambda i: dm.fused_qkv_w8_plain(x, w["wq"], w["wk"], w["wv"], i),
-        lambda i: torch.mm(x, w_qkv[i]),
-        2 * M * H * (NQ + 2 * NKV), H * (NQ + 2 * NKV) + 2 * (NQ + 2 * NKV) + 2 * M * H + 2 * M * (NQ + 2 * NKV),
-        held("fused_qkv_w8"))
+    for rows, xr in ((M, x), (m_small, x[:m_small].contiguous())):
+        out[("qkv", rows)] = measure(
+            f"fused_qkv_w8 x[{rows},{H}] wq|wk|wv[{L},{H},{NQ}+{NKV}+{NKV}]", rows,
+            lambda i, xr=xr: dm.fused_qkv_w8(xr, w["wq"], w["wk"], w["wv"], i),
+            lambda i, xr=xr: dm.fused_qkv_w8_plain(xr, w["wq"], w["wk"], w["wv"], i),
+            lambda i, xr=xr: torch.mm(xr, w_qkv[i]),
+            2 * rows * H * (NQ + 2 * NKV),
+            H * (NQ + 2 * NKV) + 2 * (NQ + 2 * NKV) + 2 * rows * H + 2 * rows * (NQ + 2 * NKV),
+            held("fused_qkv_w8"))
+    out["fused_qkv_w8"] = with_small("qkv", out.pop(("qkv", M)), out.pop(("qkv", m_small)), H)
     del w_qkv
     w_o = quant.dequantize(w["wo"])
-    out["fused_linear_w8"] = measure(
-        f"fused_linear_w8 a[{M},{NQ}] wo[{L},{NQ},{H}]",
-        lambda i: (dm.fused_linear_w8(a, w["wo"], i),),
-        lambda i: (dm.fused_linear_w8_plain(a, w["wo"], i),),
-        lambda i: torch.mm(a, w_o[i]),
-        2 * M * NQ * H, NQ * H + 2 * H + 2 * M * NQ + 2 * M * H, held("fused_linear_w8"))
+    for rows, ar in ((M, a), (m_small, a[:m_small].contiguous())):
+        out[("wo", rows)] = measure(
+            f"fused_linear_w8 a[{rows},{NQ}] wo[{L},{NQ},{H}]", rows,
+            lambda i, ar=ar: (dm.fused_linear_w8(ar, w["wo"], i),),
+            lambda i, ar=ar: (dm.fused_linear_w8_plain(ar, w["wo"], i),),
+            lambda i, ar=ar: torch.mm(ar, w_o[i]),
+            2 * rows * NQ * H, NQ * H + 2 * H + 2 * rows * NQ + 2 * rows * H, held("fused_linear_w8"))
+    out["fused_linear_w8"] = with_small("wo", out.pop(("wo", M)), out.pop(("wo", m_small)), NQ)
     del w_o
     w_gu = torch.cat([quant.dequantize(w["gate"]), quant.dequantize(w["up"])], dim=-1)
     w_d = quant.dequantize(w["down"])
@@ -745,12 +865,37 @@ def check_w8(cfg, M: int, gen) -> dict:
         gu = torch.mm(xm, w_gu[i])
         return torch.mm(F.silu(gu[:, :Fd]) * gu[:, Fd:], w_d[i])
 
-    out["fused_mlp_w8"] = measure(
-        f"fused_mlp_w8 x[{M},{H}] gate/up[{L},{H},{Fd}] down[{L},{Fd},{H}]",
-        lambda i: (dm.fused_mlp_w8(xm, w["gate"], w["up"], w["down"], i),),
+    def mlp(i):
+        return (dm.fused_mlp_w8(xm, w["gate"], w["up"], w["down"], i),)
+
+    res = measure(
+        f"fused_mlp_w8 x[{M},{H}] gate/up[{L},{H},{Fd}] down[{L},{Fd},{H}]", M, mlp,
         lambda i: (dm.fused_mlp_w8_plain(xm, w["gate"], w["up"], w["down"], i),),
         mlp_library, 6 * M * H * Fd, 3 * H * Fd + 2 * (2 * Fd + H) + 2 * M * H + 2 * M * H, held("fused_mlp_w8"))
+    # its two launches apart: gate/up (w8_swiglu) and the down projection (w8_gemm)
+    by = device_ms_by_kernel(lambda: mlp(turn()), iters=2 * L)
+    down_ms = sum(t for n, t in by.items() if "w8_gemm_kernel" in n)
+    swiglu_ms = sum(t for n, t in by.items() if "w8_swiglu_kernel" in n)
+    if down_ms <= 0 or swiglu_ms <= 0 or abs(down_ms + swiglu_ms - sum(by.values())) > 1e-9:
+        raise AssertionError(f"fused_mlp_w8's kernels by name: {by}")
+    res.update(swiglu_ms=swiglu_ms, down_ms=down_ms,
+               down_library_ms=device_ms(lambda: torch.mm(act, w_d[turn()]), iters=2 * L))
+    plans["down"] = w8_gemm_plan(M, Fd)
+    bounds["swiglu"] = bound_ms(2 * H * Fd + 4 * Fd + 2 * M * H + 2 * M * Fd, 4 * M * H * Fd)
+    bounds["down"] = bound_ms(Fd * H + 2 * H + 2 * M * Fd + 2 * M * H, 2 * M * Fd * H)
+    down_got, down_ref = dm.fused_linear_w8(act, w["down"], li), dm.fused_linear_w8_plain(act, w["down"], li)
+    res["down_rel_rms"] = held_to_plain("w8_gemm (down)", down_got, down_ref)["rel_rms"]
+    print(f"fused_mlp_w8 by launch: {json.dumps({k: res[k] for k in res if k.startswith(('swiglu', 'down'))})}",
+          flush=True)
+    out["fused_mlp_w8"] = res
+    # read from the kernel's configuration or computed, not measured: never in a record
+    out["plans_and_bounds"] = dict(plans=plans, bounds_ms=bounds)
+    print(f"w8_gemm plans [rows, row groups, K parts, ring stages, smem bytes] and bounds: "
+          f"{json.dumps(out['plans_and_bounds'])}", flush=True)
     del w_gu, w_d, w
+    if not head:
+        torch.cuda.empty_cache()
+        return out
 
     # the head: a table too large for L2 (389 MB), so it is cold on every launch anyway
     tok, mx = dm.fused_head_argmax(x, head)
@@ -1680,8 +1825,10 @@ def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None):
             return "decode_attention (ours)"
         if "verify_kernel" in n:
             return "block_verify_attention (ours)"
-        if "w8_gemm_kernel" in n or "w8_swiglu_kernel" in n:
-            return "W8 GEMMs: qkv, wo, mlp (ours)"
+        if "w8_gemm_kernel" in n:
+            return "W8 GEMM w8_gemm: qkv, wo, down (ours)"
+        if "w8_swiglu_kernel" in n:
+            return "W8 gate/up w8_swiglu (ours)"
         if "head_tile_kernel" in n or "head_reduce_kernel" in n:
             return "head_argmax (ours)"
         if any(w in n for w in ("gemm", "nvjet", "sm90_", "cutlass", "cublas", "xmma", "gemv")):
@@ -1728,8 +1875,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max_new_tokens", type=int, default=32)
-    ap.add_argument("--flash_bwd_tiles", action="store_true",
-                    help="only time the flash backward at the tile and ring sizes of FLASH_BWD_TILES")
+    ap.add_argument("--tiles", choices=sorted(TILES), default=None,
+                    help="only time this source's kernels, built with each set of nvcc defines in TILES")
+    ap.add_argument("--w8_gemm", action="store_true",
+                    help="only check and time the W8 layer kernels (QKV, WO, the MLP's two launches)")
+    ap.add_argument("--package_root", default=None,
+                    help="import the port from this directory (another tree of the repo, such as a parent "
+                         "commit unpacked with git archive), to time its kernels in the same call")
     args = ap.parse_args(argv)
 
     import torch
@@ -1741,6 +1893,12 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {REPO} is not a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    if args.package_root:
+        root = Path(args.package_root).resolve()
+        if not (root / "vggt_qwen3_tpu_torch" / "csrc").is_dir():
+            print(f"chip_smoke: {root} holds no vggt_qwen3_tpu_torch/csrc", file=sys.stderr)
+            return 1
+        sys.path.insert(0, str(root))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1762,16 +1920,24 @@ def main(argv=None) -> int:
     for kl in libs:
         print(f"built {kl.name} in {kl.build_seconds:.1f} s -> {kl.path.name}", flush=True)
         for line in kl.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "Performance Loss")):
                 print(f"  ptxas: {line.strip()}", flush=True)
 
     phase_done("build")
     stage = full_stage()
-    if args.flash_bwd_tiles:
-        times = flash_bwd_tiles(stage, torch.Generator(device="cuda").manual_seed(args.seed))
+    if args.tiles or args.w8_gemm:
+        import vggt_qwen3_tpu_torch
+
+        source = args.tiles or "decode_matmul"
+        times = tiles(source, stage, torch.Generator(device="cuda").manual_seed(args.seed), variants=not args.w8_gemm)
         print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-        print(json.dumps({"flash_bwd_tiles": times}), flush=True)
+        print(json.dumps({"tiles": source, "times": times,
+                          "package": str(Path(vggt_qwen3_tpu_torch.__file__).parent)}), flush=True)
         return 0
+    # the sources redesigned for Hopper (those TILES sweeps) build with no spill
+    spilled = {kl.name: ptxas_spills(kl) for kl in libs if kl.name in TILES and ptxas_spills(kl)}
+    if spilled:
+        raise AssertionError(f"ptxas spills: {spilled}")
     # main-path shapes: 8 prompts, left-padded, 128 vision tokens spliced in
     tok = load_tokenizer(None)
     samples = load_samples(args.seed)

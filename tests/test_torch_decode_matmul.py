@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from vggt_qwen3_tpu import config as jconfig
 from vggt_qwen3_tpu.inference import engine as jengine
 from vggt_qwen3_tpu.models import qwen3 as jqwen3
@@ -47,6 +48,7 @@ from vggt_qwen3_tpu.ops.flash_attention import flash_attention as jax_flash
 from vggt_qwen3_tpu_torch.inference import engine as pengine
 from vggt_qwen3_tpu_torch.models import qwen3 as pqwen3
 from vggt_qwen3_tpu_torch.ops import decode_matmul as pdm
+from vggt_qwen3_tpu_torch.ops import kernel_build
 from vggt_qwen3_tpu_torch.ops import quant as pquant
 from vggt_qwen3_tpu_torch.utils.agreement import agreement
 from vggt_qwen3_tpu_torch.utils.from_jax import array_to_torch, params_from_jax
@@ -541,3 +543,89 @@ def test_bench_defaults_to_the_card_and_raises_without_it(monkeypatch):
         (368, 32, 128, "w8", "int8", "cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.setup(args)
+
+
+# ---------------------------------------------------------------------------
+# w8_gemm's host side, its launches stubbed (the kernel runs on the card only)
+# ---------------------------------------------------------------------------
+
+def _stub_gemm_launches(monkeypatch):
+    """``w8_gemm`` replaced by a recorder of its arguments (pointers as ints)
+    that returns 0; CPU tensors take the kernel's path."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def w8_gemm(*args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(pdm, "_lib", lambda: Lib)
+    monkeypatch.setattr(pdm, "_use_kernel", lambda name, x: True)
+    monkeypatch.setattr(pdm, "_stream", lambda x: 0)
+    return calls
+
+
+def _qwen3_like_w8(L_, K, ns):
+    return [{"w8": torch.zeros(L_, K, n, dtype=torch.int8), "scale": torch.ones(L_, 1, n, dtype=torch.bfloat16)}
+            for n in ns]
+
+
+@pytest.mark.parametrize("M", [1, 8, 28, 368])
+def test_qkv_and_lone_launches_pass_the_same_rows_and_depth(monkeypatch, M):
+    """One QKV launch and a launch over each of its weights alone get the
+    same (M, K), so the same plan and summation order; each segment is
+    layer li of its stack by pointer offset (first and last layer), with its
+    own N and its own [M, N] output."""
+    calls = _stub_gemm_launches(monkeypatch)
+    K, ns, L_ = 2560, (4096, 1024, 1024), 3
+    ws = _qwen3_like_w8(L_, K, ns)
+    x = torch.zeros(M, K, dtype=torch.bfloat16)
+    for li in (0, L_ - 1):
+        calls.clear()
+        q, k, v = pdm.fused_qkv_w8(x, *ws, li)
+        lone = [pdm.fused_linear_w8(x, w, li) for w in ws]
+        assert len(calls) == 4 and {c[1:3] for c in calls} == {(M, K)}
+        assert calls[0][-2] == 3 and all(c[-2] == 1 for c in calls[1:])
+        for j, (w, out) in enumerate(zip(ws, (q, k, v))):
+            seg = calls[0][3 + 4 * j: 7 + 4 * j]
+            assert seg == (w["w8"].data_ptr() + li * K * ns[j], w["scale"].data_ptr() + 2 * li * ns[j],
+                           out.data_ptr(), ns[j])
+            assert calls[1 + j][3:7] == (seg[0], seg[1], lone[j].data_ptr(), ns[j])
+            assert out.shape == lone[j].shape == (M, ns[j])
+
+
+def test_gemm_wrappers_raise_before_a_launch(monkeypatch):
+    """The shapes w8_gemm does not take raise in the wrapper, naming the
+    rule, and launch nothing; Qwen3-4B's widths (2560, 4096, 1024, 9728)
+    pass."""
+    calls = _stub_gemm_launches(monkeypatch)
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="K a multiple of 64"):
+        pdm.fused_linear_w8(torch.zeros(4, 96, dtype=bf), *_qwen3_like_w8(1, 96, (128,)), 0)
+    with pytest.raises(ValueError, match="N a multiple of 128"):
+        pdm.fused_linear_w8(torch.zeros(4, 128, dtype=bf), *_qwen3_like_w8(1, 128, (192,)), 0)
+    with pytest.raises(ValueError, match="N a multiple of 128"):
+        pdm.fused_qkv_w8(torch.zeros(4, 128, dtype=bf), *_qwen3_like_w8(1, 128, (256, 128, 64)), 0)
+    with pytest.raises(ValueError, match="contiguous bf16"):
+        pdm.fused_linear_w8(torch.zeros(4, 128), *_qwen3_like_w8(1, 128, (128,)), 0)
+    with pytest.raises(ValueError, match="layer 1 outside"):
+        pdm.fused_linear_w8(torch.zeros(4, 128, dtype=bf), *_qwen3_like_w8(1, 128, (128,)), 1)
+    assert calls == []
+    for K, n in ((2560, 4096), (2560, 1024), (4096, 2560), (9728, 2560)):
+        pdm.fused_linear_w8(torch.zeros(2, K, dtype=bf), *_qwen3_like_w8(1, K, (n,)), 0)
+    assert [c[1:3] + (c[6],) for c in calls] == [(2, 2560, 4096), (2, 2560, 1024), (2, 4096, 2560),
+                                                  (2, 9728, 2560)]
+
+
+@pytest.mark.parametrize("variant", sorted(chip_smoke.TILES["decode_matmul"][0]))
+def test_w8_gemm_tile_variants_name_defines_the_source_reads(variant):
+    """The w8_gemm sweep (``chip_smoke.py --tiles decode_matmul``) builds
+    each variant with nvcc defines; ``kernel_build.rebuild`` refuses a define
+    the source does not read under ``#ifndef``, so a renamed define cannot
+    time the shipped build under another name."""
+    defines = chip_smoke.TILES["decode_matmul"][0][variant]
+    src = (kernel_build.CSRC / "decode_matmul.cu").read_text()
+    assert defines and all(f"#ifndef {k}\n" in src for k in defines)
+    with pytest.raises(ValueError, match="reads no define"):
+        kernel_build.rebuild("decode_matmul", {**defines, "NO_SUCH_SIZE": 1})

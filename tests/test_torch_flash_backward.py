@@ -323,7 +323,7 @@ def test_backward_copies_a_broadcast_input_the_forward_takes(monkeypatch, pos):
 
 @pytest.mark.parametrize("variant", sorted(chip_smoke.FLASH_BWD_TILES))
 def test_flash_bwd_tile_variants_name_defines_the_source_reads(variant):
-    """The tile sweep (``chip_smoke.py --flash_bwd_tiles``) builds each variant
+    """The tile sweep (``chip_smoke.py --tiles flash_bwd``) builds each variant
     with nvcc defines; ``kernel_build.rebuild`` refuses a define the source
     does not read under ``#ifndef``, so a renamed size cannot time the
     shipped build under another name."""

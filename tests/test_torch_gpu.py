@@ -15,6 +15,8 @@ exceeds 1e-4·max|logit| (f32 sums in another order move a logit by far
 less), at least 99 % of the rows at M = 368; the max logit at rtol 1e-5.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -419,6 +421,113 @@ def test_w8_qkv_split_edges():
         for o, w in ((q, wq), (k, wk), (v, wv)):
             assert torch.equal(o, pdm.fused_linear_w8(x, w, li))
             assert agreement(o, pdm.fused_linear_w8_plain(x, w, li))["ok"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [2560, 4096])
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 28, 63, 184, 185, 192, 193, 256, 257, 368, 1024])
+def test_w8_gemm_rows_at_tile_edges(M, K):
+    """w8_gemm at the edges of its row tiling (row widths 8-128, row groups
+    cut for one K part at 2560 deep and for four at 4096, the rows past M
+    read as TMA's zero fill) over 640 channels: two whole 256-channel tiles
+    and a half one."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    w = _w8(g, 2, K, 640)
+    x = torch.randn(M, K, device="cuda", generator=g).bfloat16()
+    got = pdm.fused_linear_w8(x, w, 1)
+    ref = pdm.fused_linear_w8_plain(x, w, 1)
+    assert got.shape == ref.shape and agreement(got, ref)["ok"], agreement(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [64, 2560, 4096, 9728])
+@pytest.mark.parametrize("M", [8, 368])
+def test_w8_gemm_depths(M, K):
+    """Qwen3-4B's depths (QKV/MLP 2560, WO 4096, down 9728) and one 64-deep
+    step: 1 to 8 K parts summed across the cluster."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    w = _w8(g, 2, K, 512)
+    x = (torch.randn(M, K, device="cuda", generator=g) * 0.05).bfloat16()
+    got = pdm.fused_linear_w8(x, w, 0)
+    ref = pdm.fused_linear_w8_plain(x, w, 0)
+    assert agreement(got, ref)["ok"], agreement(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 368])
+def test_w8_qkv_with_half_tiles_equals_lone_launches(M):
+    """Segments of 640, 128 and 384 channels (a 256-channel tile half full in
+    each) at Qwen3-4B's depth: each output of the QKV launch equals, bit for
+    bit, a launch over its weight alone, and agrees with the plain version."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    wq, wk, wv = _w8(g, 2, 2560, 640), _w8(g, 2, 2560, 128), _w8(g, 2, 2560, 384)
+    x = torch.randn(M, 2560, device="cuda", generator=g).bfloat16()
+    outs = pdm.fused_qkv_w8(x, wq, wk, wv, 1)
+    for o, w in zip(outs, (wq, wk, wv)):
+        assert torch.equal(o, pdm.fused_linear_w8(x, w, 1))
+        assert agreement(o, pdm.fused_linear_w8_plain(x, w, 1))["ok"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 368])
+def test_w8_gemm_repeats_bit_for_bit(M):
+    """No atomics: two launches on the same inputs give the same bits (QKV
+    and WO at Qwen3-4B's widths)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    wq, wk, wv, wo = _w8(g, 1, 2560, 4096), _w8(g, 1, 2560, 1024), _w8(g, 1, 2560, 1024), _w8(g, 1, 4096, 2560)
+    x = torch.randn(M, 2560, device="cuda", generator=g).bfloat16()
+    a = torch.randn(M, 4096, device="cuda", generator=g).bfloat16()
+    first = [*pdm.fused_qkv_w8(x, wq, wk, wv, 0), pdm.fused_linear_w8(a, wo, 0)]
+    second = [*pdm.fused_qkv_w8(x, wq, wk, wv, 0), pdm.fused_linear_w8(a, wo, 0)]
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_w8_gemm_reads_each_layer_by_pointer_offset():
+    """The first and the last layer of a stacked [L, K, N] weight: each
+    launch reads its own layer's weights and scales."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    L = 4
+    w = _w8(g, L, 2560, 1024)
+    x = torch.randn(368, 2560, device="cuda", generator=g).bfloat16()
+    outs = {li: pdm.fused_linear_w8(x, w, li) for li in (0, L - 1)}
+    for li, got in outs.items():
+        ref = pdm.fused_linear_w8_plain(x, w, li)
+        assert agreement(got, ref)["ok"], (li, agreement(got, ref))
+    assert not torch.equal(outs[0], outs[L - 1])
+
+
+@pytest.mark.gpu
+def test_w8_gemm_plan_cuts_rows_and_depth_evenly():
+    """The kernel's own cut of a launch (``w8_gemm_plan``): the M rows in
+    equal row groups (none empty), each padded to the least row width that
+    holds it; K in a power-of-two number of parts, at most 8 and at most K's
+    64-deep steps; a ring of 2-8 stages whose shared memory fits a block.
+    At Qwen3-4B's shapes it is the cut the H100 sweep chose."""
+    _need_card()
+    lib = pdm._lib()
+    buf = (ctypes.c_int * 5)()
+    widths = (8, 16, 32, 64, 80, 96, 128)
+
+    def plan(M, K):
+        assert lib.w8_gemm_plan(M, K, ctypes.addressof(buf)) == 0
+        return tuple(buf)
+
+    for M in sorted(set(range(1, 1100, 7)) | {8, 184, 185, 192, 193, 256, 257, 368, 1024}):
+        for K in (64, 128, 2560, 4096, 9728):
+            rows, groups, splits, stages, smem = plan(M, K)
+            per = -(-M // groups)
+            assert rows in widths and per <= rows and (groups - 1) * per < M, (M, K, rows, groups)
+            assert all(r < per for r in widths if r < rows), (M, K, rows, per)
+            assert splits in (1, 2, 4, 8) and splits <= K // 64, (M, K, splits)
+            assert 2 <= stages <= 8 and smem <= 232448, (M, K, stages, smem)
+    assert plan(368, 2560)[:3] == (80, 5, 1) and plan(368, 4096)[:3] == (128, 3, 4)
+    assert plan(8, 2560)[:3] == (8, 1, 4) and plan(8, 9728)[:3] == (8, 1, 8)
 
 
 @pytest.mark.gpu

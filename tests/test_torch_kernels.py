@@ -251,3 +251,21 @@ def test_kernel_build_reports_compiler_errors_after_every_compiler_ends(build_di
     assert "error: no compiler here" in str(err.value)
     assert len(started) == 2 and all(p.returncode == 2 for p in started)
     assert not any((tmp / "build").glob("*.so"))
+
+
+def test_kernel_build_keeps_the_ptxas_report_for_a_later_load(build_dirs, monkeypatch):
+    """A library loaded from an earlier build (no compiler run) still shows
+    what ptxas said when it was built: the spill checks read it."""
+    kernel_build, tmp = build_dirs
+    fake = tmp / "nvcc"
+    fake.write_text("#!/bin/sh\nwhile [ \"$1\" != -o ]; do shift; done\ntouch \"$2\"\n"
+                    "echo 'ptxas info    : 8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads'\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernel_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernel_build.ctypes, "CDLL", lambda path: path)
+    monkeypatch.setattr(kernel_build, "_LIBS", {})
+    first = kernel_build.build(["a"])[0]
+    kernel_build._LIBS.clear()
+    again = kernel_build.build(["a"])[0]
+    assert "8 bytes spill stores" in first.ptxas_log
+    assert again.ptxas_log == first.ptxas_log and again.build_seconds == 0.0

@@ -22,7 +22,9 @@ oracle ``mlp_w8_xla`` is. CPU tensors take them; CUDA tensors launch the
 ``qkv_eligible``, ``linear_eligible``, ``head_argmax_eligible``: batch size
 and VMEM tiling) are not carried over: the kernels take any number of rows
 and raise on a K that is not a multiple of 64 or an N that is not a multiple
-of 128.
+of 128. How ``w8_gemm`` (QKV, WO, the MLP's down projection) cuts a launch,
+and so orders its sums, is the kernel's own choice and depends on (M, K)
+only (``w8_gemm_plan`` in ``csrc/decode_matmul.cu`` returns it).
 """
 
 from __future__ import annotations
@@ -97,6 +99,8 @@ def _lib():
         lib.w8_swiglu.restype = I
         lib.head_argmax.argtypes = [P, I, I, P, P, I, P, P, P, P, P]
         lib.head_argmax.restype = I
+        lib.w8_gemm_plan.argtypes = [I, I, P]
+        lib.w8_gemm_plan.restype = I
     return lib
 
 

@@ -84,10 +84,14 @@ def build(names: Iterable[str], defines: Optional[Dict[str, int]] = None) -> Lis
     for n, (proc, tmp, out) in procs.items():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {n}.cu (rc={proc.returncode}):\n{logs[n]}")
+        out.with_suffix(".log").write_text(logs[n])  # what ptxas said, kept for a later load
         os.replace(tmp, out)
     seconds = time.perf_counter() - t0
     for n in todo:
-        _LIBS[n] = KernelLibrary(n, _target(n, defines), seconds if n in procs else 0.0, logs.get(n, ""))
+        out = _target(n, defines)
+        kept = out.with_suffix(".log")
+        log = logs[n] if n in procs else (kept.read_text() if kept.exists() else "")
+        _LIBS[n] = KernelLibrary(n, out, seconds if n in procs else 0.0, log)
     return [_LIBS[n] for n in names]
 
 
