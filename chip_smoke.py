@@ -2,22 +2,25 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--max_new_tokens 32]
-    python3 chip_smoke.py --tiles flash_bwd|decode_matmul [--package_root DIR]
-    python3 chip_smoke.py --w8_gemm [--package_root DIR]
+    python3 chip_smoke.py --tiles flash_bwd|decode_matmul|decode_attention [--build NAME] [--package_root DIR]
+    python3 chip_smoke.py --w8_bench [--package_root DIR]
 
 Run from the root of a checkout. It:
 
 1. prints the card (name, ``nvidia-smi`` power limit);
-2. builds the five CUDA sources of the port from ``vggt_qwen3_tpu_torch/csrc``
-   (flash forward, the two flash backward kernels, decode attention,
-   block-verify attention, the four W8 decode kernels) with ``nvcc`` for
-   sm_90a, in parallel, prints the ptxas report and fails on a spill in the
-   sources redesigned for Hopper (``TILES``: flash_bwd, decode_matmul);
+2. builds the CUDA sources of the port from ``vggt_qwen3_tpu_torch/csrc``
+   (flash forward, the two flash backward kernels, decode and block-verify
+   attention, the four W8 decode kernels) with ``nvcc`` for sm_90a, in
+   parallel, prints the ptxas report and fails on a spill in the sources
+   redesigned for Hopper (``TILES``: flash_bwd, decode_matmul,
+   decode_attention);
 3. holds each kernel against its plain PyTorch version at its main path's
    shapes (``utils.agreement``, tol 2e-2 scaled to the reference: every
-   element within 2e-2·max|ref| + 2e-2·|ref|, and ‖err‖₂ ≤ 5e-3·‖ref‖₂; rows
-   with no valid key exactly 0; the W8 head: the same token on every row
-   whose top-2 gap exceeds 1e-4·max|logit|, at least 99 % of the rows),
+   element within 2e-2·max|ref| + 2e-2·|ref|, and ‖err‖₂ ≤ 5e-3·‖ref‖₂;
+   decode attention and block verify ‖err‖₂ ≤ 2e-4·‖ref‖₂; rows with no
+   valid key exactly 0; the W8 head: the same token on every row whose
+   top-2 gap exceeds 1e-4·max|logit|, at least 99 % of the rows), failing
+   where a kernel's device time reads below its bound,
    timing on the device (``torch.profiler``) the kernel, the plain version
    and one PyTorch library call that computes the same function
    (``scaled_dot_product_attention``; ``torch.mm`` over a bf16 copy of the
@@ -26,10 +29,15 @@ Run from the root of a checkout. It:
    events (host included). Kernels that read a stacked per-layer tensor are
    timed with the layer index turning over the layers, so each launch reads
    a layer the one before did not, as in a decode step;
-   The block-verify kernel runs at the ARKit verify shape (q [4, 7, 32, 128]
-   over [36, 4, 8, 832, 128]) with bf16 and int8 caches, ragged starts and
-   offsets, a row whose first queries see no slot (exactly 0) and 1e4 in
-   every slot no query sees. The W8 layer kernels run at the bench shape
+   The decode kernel runs at the QA decode step's shape (bf16 and int8
+   caches) and at the W8 bench's (int8 [36, 368, 8, 160, 128], every
+   frontier at 97; SDPA over a bf16 copy dequantized outside the timed
+   region is its yardstick); the block-verify kernel at the ARKit verify
+   shape (q [4, 7, 32, 128] over [36, 4, 8, 832, 128]) with bf16 and int8
+   caches, ragged starts and offsets, a row whose first queries see no slot
+   (exactly 0) and 1e4 in every slot no query sees; each shape's cut
+   (``attention_plan``: splits of a row's cache, warps, shared memory) is
+   printed on a line of its own. The W8 layer kernels run at the bench shape
    (368 rows) and QKV and WO also at 8 rows (the QA path's W8 decode step),
    the MLP's two launches timed apart (gate/up; the down w8_gemm, beside
    ``torch.mm`` for the down projection alone), two launches of each on the
@@ -106,13 +114,17 @@ outside a checkout of the repo, it exits non-zero before printing a result.
 With ``--tiles SOURCE`` it runs only the checks of step 3 that time the
 kernels of ``csrc/SOURCE.cu``, once for each build in ``TILES[SOURCE]``
 (tile, ring and cut sizes set with nvcc defines), the source's own first and
-last so that the spread of the call shows beside the differences:
-``flash_bwd`` runs the flash backward at its three shapes, ``decode_matmul``
-the W8 layer kernels (QKV and WO at 368 and 8 rows, the MLP's two launches;
-no head). ``--w8_gemm`` is the latter with the source's own build alone.
-``--package_root DIR`` imports the port from DIR instead (another tree, such
-as the parent commit unpacked with ``git archive``), so that two trees are
-timed on one card: parent, change, change, parent.
+last so that the spread of the call shows beside the differences, each
+build in a process of its own: ``flash_bwd`` runs the flash backward at its
+three shapes, ``decode_matmul`` the W8 layer kernels (QKV and WO at 368 and
+8 rows, the MLP's two launches; no head), ``decode_attention`` kernels 2 and
+3 at the QA, W8 and ARKit shapes. ``--build NAME`` runs one build alone:
+``own`` (the source's defines) or a name of ``TILES[SOURCE]``.
+``--w8_bench`` drives only the W8 bench path (tok/s, decode step, launch
+counts, profile by kernel family). ``--package_root DIR`` imports the port
+from DIR instead (another tree, such as the parent commit unpacked with
+``git archive``), so that two trees are timed on one card: parent, change,
+change, parent.
 """
 
 from __future__ import annotations
@@ -166,6 +178,19 @@ W8_GEMM_TILES = {
     "small_part_steps_5": {"W8_SMALL_PART_STEPS": 5},
     "small_part_steps_20": {"W8_SMALL_PART_STEPS": 20},
 }
+# other tile, ring and split sizes of kernels 2 and 3 (csrc/decode_attention.cu),
+# as the nvcc defines it reads (its own: 32-slot tiles, a ring of 2, at most 8
+# splits a row)
+ATTENTION_TILES = {
+    "tile_64_slots": {"TILE_SLOTS": 64},
+    "ring_3": {"RING_STAGES": 3},
+    "at_most_4_splits": {"PLAN_MAX_SPLITS": 4},
+}
+# ‖err‖₂ / ‖ref‖₂ that kernels 2 and 3 are held to: they keep P in f32 as a
+# bf16 head and residual (the plain version's P to ~2^-16); P rounded to bf16
+# once read 2.1e-3 at the QA shape on an H100, inside utils.agreement's 5e-3
+ATTENTION_REL_RMS = 2e-4
+ATTENTION_SOURCE = "vggt_qwen3_tpu_torch/csrc/decode_attention.cu"
 W8_SOURCE = "vggt_qwen3_tpu_torch/csrc/decode_matmul.cu"
 W8_REPLACES = {
     "fused_qkv_w8": "vggt_qwen3_tpu/ops/decode_matmul.py:180",
@@ -325,11 +350,7 @@ def device_ms(fn, iters: int) -> float:
     ``torch.profiler`` records them, over ``iters`` calls. Unlike
     :func:`cuda_ms` it leaves out the host's time between launches, which is
     what a back-to-back loop of a short kernel measures."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    by = device_ms_by_kernel(fn, iters)
-    return sum(by.values())
+    return sum(device_ms_by_kernel(fn, iters).values())
 
 
 def sm_clock_hz() -> float:
@@ -344,16 +365,27 @@ def bound_ms(nbytes: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def held_to_plain(what: str, got, ref) -> dict:
+def held_to_plain(what: str, got, ref, rel_rms=None) -> dict:
     """The kernel's output against its plain version's, by the limits of
-    ``utils.agreement``; raises if they disagree, else returns the errors
-    beside their limits."""
+    ``utils.agreement`` and, where ``rel_rms`` is given, ‖err‖₂ ≤
+    rel_rms·‖ref‖₂; raises if they disagree, else returns the errors beside
+    their limits."""
     from vggt_qwen3_tpu_torch.utils.agreement import agreement
 
     out = agreement(got, ref)
-    if not out.pop("ok"):
+    if rel_rms is not None:
+        out["rel_rms_limit"] = min(out["rel_rms_limit"], rel_rms)
+    if not out.pop("ok") or out["rel_rms"] > out["rel_rms_limit"]:
         raise AssertionError(f"{what} disagrees with its plain version: {out}")
     return out
+
+
+def not_below_bound(what: str, ms: float, bms: float) -> None:
+    """A device time below the least the card could take for the work is a
+    fault of the measurement (a profiler session that missed launches):
+    fail rather than report it."""
+    if ms < bms:
+        raise AssertionError(f"{what}: {ms} ms a launch reads below its bound of {bms} ms")
 
 
 def check_flash(name, B, S, T, NH, NKV, D, *, causal, starts, gen):
@@ -418,26 +450,31 @@ def check_flash(name, B, S, T, NH, NKV, D, *, causal, starts, gen):
 
 def device_ms_by_kernel(fn, iters: int) -> dict:
     """Device time of one call of ``fn`` by kernel name (``torch.profiler``).
-    A profiler session now and then records no device activity at all (after
-    many sessions in one process); such a session is run again, twice at
-    most."""
+    A profiler session now and then records no device activity at all, or
+    only part of it (a kernel seen a number of times that is not a multiple
+    of ``iters``, which reads a time below the kernel's); such a session is
+    run again, twice at most, and if none of the three saw every launch
+    this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    events = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by = {}
+        by, seen = {}, {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-        if by:
+                seen[e.name] = seen.get(e.name, 0) + 1
+        if by and all(n % iters == 0 for n in seen.values()):
             return by
-    raise AssertionError("the profiler saw no device time")
+        events.append(sum(seen.values()))
+    raise AssertionError(f"every profiler session missed launches: {events} device events over {iters} calls")
 
 
 def check_flash_backward(name, B, S, NH, NKV, D, *, causal, starts, ends, gen):
@@ -597,8 +634,56 @@ def w8_gemm_times(stage, gen) -> dict:
     return times
 
 
+def attention_checks(stage, gen, seed: int = 0, max_new_tokens: int = 32) -> dict:
+    """Kernels 2 and 3 at their main paths' shapes, bf16 and int8 caches:
+    the QA decode step (8 prompts left-padded, the 128 vision tokens spliced
+    in, T = prefill + new tokens, every row's end at T), the W8 bench's decode
+    step (368 rows, int8, T = 160, starts 0, every row's end at 97: the mean
+    frontier of its 128 steps) and the ARKit verify block (q [4, 7, 32, 128]
+    over 832 slots, ragged starts and offsets, a row whose first queries see
+    no slot)."""
+    from vggt_qwen3_tpu_torch import bench
+    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
+    from vggt_qwen3_tpu_torch.inference.arkit import prompt_for
+    from vggt_qwen3_tpu_torch.inference.batching import encode_prompts, max_prompt_len
+
+    tok = load_tokenizer(None)
+    txt = stage.model.text
+    L, NH, NKV, D, li = txt.num_layers, txt.num_heads, txt.num_kv_heads, txt.head_dim, min(17, txt.num_layers - 1)
+    questions = [f"{s['question']}\n<image>\n" for s in load_samples(seed, n_views=1, side=8)]
+    lens = [len(tok(q)["input_ids"]) for q in questions]
+    pad_to = max_prompt_len(tok, questions)
+    T = pad_to + stage.model.num_vis_tokens - 1 + max_new_tokens
+    res = {f"decode_{kv}": check_decode(kv, L, 8, NH, NKV, T, D, li, [pad_to - n for n in lens],
+                                        quant=kv == "int8", gen=gen) for kv in ("bf16", "int8")}
+    w8 = bench.parse_args([])
+    res["decode_w8"] = check_decode("w8_int8", L, w8.batch, NH, NKV, w8.prompt + w8.decode, D, li, [0] * w8.batch,
+                                    ends=[w8.prompt + 1 + w8.decode // 2] * w8.batch, quant=True, gen=gen)
+    # the ARKit verify shape: 4 scenes, prompts left-padded, the Perceiver's
+    # 128 latents spliced in, a cache of ceil((S + N + k) / 32) · 32 slots
+    arkit_q = [r["instruction"] for r in json.loads((REPO / ARKIT_SCENES).read_text())[:4]]
+    _, arkit_mask = encode_prompts(tok, [prompt_for(q) for q in arkit_q], pad_to_len=0)
+    S_a = arkit_mask.shape[1] + stage.model.projector.num_latents - 1
+    T_a = -(-(S_a + ARKIT_NEW_TOKENS + DRAFT_K) // 32) * 32
+    a_starts = (arkit_mask.shape[1] - arkit_mask.sum(-1)).tolist()
+    a_starts[2] = S_a + 202  # row 2: queries 0 and 1 see no slot
+    a_offs = [S_a + 300, S_a + 117, S_a + 200, S_a + ARKIT_NEW_TOKENS - 1]
+    for kv in ("bf16", "int8"):
+        res[f"verify_{kv}"] = check_verify(kv, L, 4, NH, NKV, T_a, D, DRAFT_K + 1, li, a_starts, a_offs,
+                                           quant=kv == "int8", gen=gen)
+    return res
+
+
+def attention_times(stage, gen) -> dict:
+    """attention_checks' device ms of each shape, beside SDPA's, the bound and
+    the rel RMS against the plain version."""
+    return {name: dict(ms=r["ms"], library_ms=r["library_ms"], call_ms=r["call_ms"], bound_ms=r["bound_ms"],
+                       rel_rms=r["rel_rms"]) for name, r in attention_checks(stage, gen).items()}
+
+
 # csrc/<source>.cu -> (its variants as nvcc defines, the check that times a build)
-TILES = {"flash_bwd": (FLASH_BWD_TILES, flash_bwd_times), "decode_matmul": (W8_GEMM_TILES, w8_gemm_times)}
+TILES = {"flash_bwd": (FLASH_BWD_TILES, flash_bwd_times), "decode_matmul": (W8_GEMM_TILES, w8_gemm_times),
+         "decode_attention": (ATTENTION_TILES, attention_times)}
 
 
 def ptxas_spills(lib) -> list:
@@ -606,28 +691,55 @@ def ptxas_spills(lib) -> list:
     return [ln.strip() for ln in lib.ptxas_log.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln]
 
 
-def tiles(source: str, stage, gen, variants: bool = True) -> dict:
-    """TILES[source]'s check for each build of csrc/<source>.cu in its table,
-    the source's own defines first and last ("own", "own (again)"); with
-    ``variants`` false, the source's own build once. Fails on a ptxas spill."""
+def tiles(source: str, build: str, stage, gen) -> dict:
+    """TILES[source]'s check for one build of csrc/<source>.cu: ``own`` (the
+    source's defines) or a name of its table (nvcc defines). Fails on a ptxas
+    spill in a build of this repo; another tree's build (``--package_root``)
+    is timed with its spills beside its times."""
+    import vggt_qwen3_tpu_torch
     from vggt_qwen3_tpu_torch.ops import kernel_build
 
+    this_tree = Path(vggt_qwen3_tpu_torch.__file__).resolve().parents[1] == REPO
     table, check = TILES[source]
-    runs = [("own", {}), *table.items(), ("own (again)", {})] if variants else [("own", {})]
-    times = {}
-    for name, defines in runs:
-        lib = kernel_build.rebuild(source, defines)
-        spills = ptxas_spills(lib)
-        if spills:
-            raise AssertionError(f"{source} {name}: ptxas spills: {spills}")
-        times[name] = check(stage, gen)
-        print(f"tiles {source} {name} {json.dumps(defines)} {json.dumps(times[name])}", flush=True)
-    if variants:
-        kernel_build.rebuild(source, {})
+    lib = kernel_build.rebuild(source, table[build]) if build != "own" else kernel_build.load(source)
+    spills = ptxas_spills(lib)
+    if spills and this_tree:
+        raise AssertionError(f"{source} {build}: ptxas spills: {spills}")
+    times = check(stage, gen)
+    if spills:
+        times["ptxas_spills"] = spills
     return times
 
 
-def check_decode(name, L, B, NH, NKV, T, D, li, starts, *, quant, gen):
+def sweep(source: str, package_root) -> dict:
+    """:func:`tiles` for each build of TILES[source], the source's own first
+    and last ("own", "own (again)"), each in a child process: in one process
+    that loaded the builds one after another, the profiler sessions after
+    the first load missed launches. Raises if a build fails."""
+    runs = [("own", "own"), *((n, n) for n in TILES[source][0]), ("own (again)", "own")]
+    times = {}
+    for label, build in runs:
+        cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--tiles", source, "--build", build]
+        if package_root:
+            cmd += ["--package_root", package_root]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        sys.stdout.write(proc.stdout)
+        if proc.returncode != 0:
+            raise AssertionError(f"--tiles {source} --build {build} failed (rc {proc.returncode}):\n"
+                                 f"{proc.stderr[-4000:]}")
+        times[label] = json.loads(proc.stdout.strip().splitlines()[-1])["times"]
+        print(f"tiles {source} {label} {json.dumps(TILES[source][0].get(build, {}))} {json.dumps(times[label])}",
+              flush=True)
+    return times
+
+
+def check_decode(name, L, B, NH, NKV, T, D, li, starts, *, quant, gen, ends=None):
+    """The decode kernel against its plain version over the slots [start,
+    end) of each row (``ends`` None: every row's end at T), timed with the
+    layer index turning. The yardstick is SDPA over the same layer with a
+    [B, 1, 1, T] boolean mask; for an int8 cache (no single library call
+    reads one with its scales folded) SDPA over a bf16 copy dequantized
+    outside the timed region, labelled so."""
     import torch
     import torch.nn.functional as F
 
@@ -644,34 +756,57 @@ def check_decode(name, L, B, NH, NKV, T, D, li, starts, *, quant, gen):
         v = torch.randn(L, B, NKV, T, D, device="cuda", generator=gen).bfloat16()
         ks = vs = None
     start = torch.tensor(starts, dtype=torch.int32, device="cuda")
-    end = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    ends = [T] * B if ends is None else ends
+    end = torch.tensor(ends, dtype=torch.int32, device="cuda")
     args = (q, k, v, li, start, end, ks, vs)
     got = da.gqa_decode_attention(*args)
     torch.cuda.synchronize()
     ref = da.gqa_decode_attention_plain(*args)
-    agree = held_to_plain(f"decode_attention[{name}]", got, ref)
+    agree = held_to_plain(f"decode_attention[{name}]", got, ref, rel_rms=ATTENTION_REL_RMS)
+    del ref
     turn = layer_turns(L)
-    library_ms = None
-    if not quant:  # no single library call reads an int8 cache with folded scales
-        pos = torch.arange(T, device="cuda")
-        mask = (pos[None, :] >= start[:, None])[:, None, None, :]
-        q4 = q[:, :, None]
-        library_ms = device_ms(lambda: (lambda i: F.scaled_dot_product_attention(
-            q4, k[i], v[i], attn_mask=mask, enable_gqa=True))(turn()), 2 * L)
+    if quant:  # layer by layer: a whole f32 copy of the W8 bench's cache would not fit beside it
+        kd = torch.empty(k.shape, dtype=torch.bfloat16, device="cuda")
+        vd = torch.empty(v.shape, dtype=torch.bfloat16, device="cuda")
+        for i in range(L):
+            kd[i] = (k[i].float() * ks[i].float()[..., None]).bfloat16()
+            vd[i] = (v[i].float() * vs[i].float()[..., None]).bfloat16()
+    else:
+        kd, vd = k, v
+    pos = torch.arange(T, device="cuda")
+    mask = ((pos[None, :] >= start[:, None]) & (pos[None, :] < end[:, None]))[:, None, None, :]
+    q4 = q[:, :, None]
+    library_ms = device_ms(lambda: (lambda i: F.scaled_dot_product_attention(
+        q4, kd[i], vd[i], attn_mask=mask, enable_gqa=True))(turn()), 2 * L)
+    del kd, vd
     rotating = lambda: da.gqa_decode_attention(q, k, v, turn(), start, end, ks, vs)  # noqa: E731
     call_ms = cuda_ms(rotating, iters=2 * L)
     ms = device_ms(rotating, iters=2 * L)
     ms_one_layer = device_ms(lambda: da.gqa_decode_attention(*args), iters=20)  # one fixed layer, warm in L2
     plain_ms = device_ms(lambda: da.gqa_decode_attention_plain(q, k, v, turn(), start, end, ks, vs), iters=6)
-    slots = sum(T - s for s in starts)
+    slots = sum(min(e, T) - min(s, T) for s, e in zip(starts, ends) if e > s)
     itemsize = 1 if quant else 2
     nbytes = 2 * slots * NKV * D * itemsize + (2 * slots * NKV * 2 if quant else 0) + 2 * 2 * B * NH * D
     bms, by = bound_ms(nbytes, 4 * NH * D * slots)
+    not_below_bound(f"decode_attention[{name}]", ms, bms)
     out = dict(shape=f"{name} q[{B},{NH},{D}] cache[{L},{B},{NKV},{T},{D}] li turning over {L} layers",
                **agree, ms=ms, ms_one_layer=ms_one_layer, call_ms=call_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bms, bound_by=by)
+               library_ms=library_ms, library="SDPA" + (" over a bf16 copy dequantized outside the timed region"
+                                                        if quant else ""),
+               bound_ms=bms, bound_by=by)
     print(f"decode_attention {json.dumps(out)}", flush=True)
+    print_attention_plan(f"decode_attention[{name}]", B, 1, NH, NKV, T, D, quant)
     return out
+
+
+def print_attention_plan(what, B, S, NH, NKV, T, D, quant):
+    """The kernel's own cut of a launch (splits of each row's cache, warps,
+    shared memory), on a line of its own; nothing for a tree whose kernel
+    has no plan to report."""
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+
+    if hasattr(da, "attention_plan"):
+        print(f"attention plan {what}: {json.dumps(da.attention_plan(B, S, NH, NKV, T, D, quant))}", flush=True)
 
 
 def layer_turns(L: int):
@@ -716,7 +851,7 @@ def check_verify(name, L, B, NH, NKV, T, D, S, li, starts, offs, *, quant, gen):
     empty = s0[:, None] >= q_end  # [B, S] queries with no valid slot
     if not empty.any() or got[empty].abs().max().item() != 0.0:
         raise AssertionError(f"block_verify_attention[{name}]: queries with no valid slot are not 0")
-    agree = held_to_plain(f"block_verify_attention[{name}]", got[~empty], ref[~empty])
+    agree = held_to_plain(f"block_verify_attention[{name}]", got[~empty], ref[~empty], rel_rms=ATTENTION_REL_RMS)
     del ref
     turn = layer_turns(L)
     kd, vd = (k, v) if not quant else ((k.float() * ks.float()[..., None]).bfloat16(),
@@ -738,10 +873,14 @@ def check_verify(name, L, B, NH, NKV, T, D, S, li, starts, offs, *, quant, gen):
     itemsize = 1 if quant else 2
     nbytes = 2 * slots * NKV * D * itemsize + (2 * slots * NKV * 2 if quant else 0) + 2 * 2 * B * S * NH * D
     bms, by = bound_ms(nbytes, 4 * D * pairs)
+    not_below_bound(f"block_verify_attention[{name}]", ms, bms)
     out = dict(shape=f"{name} q[{B},{S},{NH},{D}] cache[{L},{B},{NKV},{T},{D}] li turning over {L} layers",
                **agree, empty_queries=int(empty.sum()), ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bms, bound_by=by)
+               library_ms=library_ms, library="SDPA, explicit mask" + (
+                   " (over a bf16 copy dequantized outside the timed region)" if quant else ""),
+               bound_ms=bms, bound_by=by)
     print(f"block_verify_attention {json.dumps(out)}", flush=True)
+    print_attention_plan(f"block_verify_attention[{name}]", B, S, NH, NKV, T, D, quant)
     return out
 
 
@@ -1876,13 +2015,18 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max_new_tokens", type=int, default=32)
     ap.add_argument("--tiles", choices=sorted(TILES), default=None,
-                    help="only time this source's kernels, built with each set of nvcc defines in TILES")
-    ap.add_argument("--w8_gemm", action="store_true",
-                    help="only check and time the W8 layer kernels (QKV, WO, the MLP's two launches)")
+                    help="only time this source's kernels, built with each set of nvcc defines in TILES "
+                         "(a process each)")
+    ap.add_argument("--build", default=None,
+                    help="with --tiles: only this build, 'own' (the source's defines) or a name of its TILES table")
+    ap.add_argument("--w8_bench", action="store_true",
+                    help="only drive the W8 decode bench path (tok/s, decode step, profile by kernel family)")
     ap.add_argument("--package_root", default=None,
                     help="import the port from this directory (another tree of the repo, such as a parent "
                          "commit unpacked with git archive), to time its kernels in the same call")
     args = ap.parse_args(argv)
+    if args.build is not None and (args.tiles is None or args.build not in ["own", *TILES[args.tiles][0]]):
+        ap.error(f"--build takes --tiles and one of own, {', '.join(TILES.get(args.tiles, ({},))[0])}")
 
     import torch
 
@@ -1916,7 +2060,7 @@ def main(argv=None) -> int:
     from vggt_qwen3_tpu_torch.inference.batching import max_prompt_len
     from vggt_qwen3_tpu_torch.ops import kernel_build
 
-    libs = kernel_build.build(["flash_fwd", "flash_bwd", "decode_attention", "block_verify", "decode_matmul"])
+    libs = kernel_build.build(sorted(p.stem for p in kernel_build.CSRC.glob("*.cu")))
     for kl in libs:
         print(f"built {kl.name} in {kl.build_seconds:.1f} s -> {kl.path.name}", flush=True)
         for line in kl.ptxas_log.splitlines():
@@ -1925,14 +2069,23 @@ def main(argv=None) -> int:
 
     phase_done("build")
     stage = full_stage()
-    if args.tiles or args.w8_gemm:
+    if args.tiles or args.w8_bench:
         import vggt_qwen3_tpu_torch
 
-        source = args.tiles or "decode_matmul"
-        times = tiles(source, stage, torch.Generator(device="cuda").manual_seed(args.seed), variants=not args.w8_gemm)
+        package = str(Path(vggt_qwen3_tpu_torch.__file__).parent)
+        if args.w8_bench:
+            counts, res = w8_bench_path(args)
+            print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+            print(json.dumps({"w8_bench": {k: v for k, v in res.items() if k != "tokens"}, "launches": counts,
+                              "package": package}), flush=True)
+            return 0
+        if args.build:
+            times = tiles(args.tiles, args.build, stage, torch.Generator(device="cuda").manual_seed(args.seed))
+        else:
+            times = sweep(args.tiles, args.package_root)
         print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-        print(json.dumps({"tiles": source, "times": times,
-                          "package": str(Path(vggt_qwen3_tpu_torch.__file__).parent)}), flush=True)
+        print(json.dumps({"tiles": args.tiles, "build": args.build or "all", "times": times, "package": package}),
+              flush=True)
         return 0
     # the sources redesigned for Hopper (those TILES sweeps) build with no spill
     spilled = {kl.name: ptxas_spills(kl) for kl in libs if kl.name in TILES and ptxas_spills(kl)}
@@ -1945,7 +2098,6 @@ def main(argv=None) -> int:
     pad_to = max_prompt_len(tok, [f"{s['question']}\n<image>\n" for s in samples])
     S = pad_to + stage.model.num_vis_tokens - 1
     starts = [pad_to - n for n in lens]
-    T = S + args.max_new_tokens
     txt, vis = stage.model.text, stage.model.vision
     tpf = vis.patch_start_idx + (stage.data.image_size // vis.patch_size) ** 2  # 1029 at 448²
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1959,28 +2111,9 @@ def main(argv=None) -> int:
         "qwen3_prefill": check_flash("qwen3_prefill", B, S, S, txt.num_heads, txt.num_kv_heads, txt.head_dim,
                                      causal=True, starts=starts, gen=gen),
     }
-    decode = {
-        kv: check_decode(kv, txt.num_layers, B, txt.num_heads, txt.num_kv_heads, T, txt.head_dim,
-                         min(17, txt.num_layers - 1), starts, quant=kv == "int8", gen=gen)
-        for kv in ("bf16", "int8")
-    }
-    # the ARKit verify shape: 4 scenes, prompts left-padded, the Perceiver's
-    # 128 latents spliced in, a cache of ceil((S + N + k) / 32) · 32 slots
-    from vggt_qwen3_tpu_torch.inference.arkit import prompt_for
-    from vggt_qwen3_tpu_torch.inference.batching import encode_prompts
-
-    arkit_q = [r["instruction"] for r in json.loads((REPO / ARKIT_SCENES).read_text())[:4]]
-    _, arkit_mask = encode_prompts(tok, [prompt_for(q) for q in arkit_q], pad_to_len=0)
-    S_a = arkit_mask.shape[1] + stage.model.projector.num_latents - 1
-    T_a = -(-(S_a + ARKIT_NEW_TOKENS + DRAFT_K) // 32) * 32
-    a_starts = (arkit_mask.shape[1] - arkit_mask.sum(-1)).tolist()
-    a_starts[2] = S_a + 202  # row 2: queries 0 and 1 see no slot
-    a_offs = [S_a + 300, S_a + 117, S_a + 200, S_a + ARKIT_NEW_TOKENS - 1]
-    verify = {
-        kv: check_verify(kv, txt.num_layers, 4, txt.num_heads, txt.num_kv_heads, T_a, txt.head_dim, DRAFT_K + 1,
-                         min(17, txt.num_layers - 1), a_starts, a_offs, quant=kv == "int8", gen=gen)
-        for kv in ("bf16", "int8")
-    }
+    attention = attention_checks(stage, gen, args.seed, args.max_new_tokens)  # kernels 2 and 3
+    decode = {kv: attention[f"decode_{kv}"] for kv in ("bf16", "int8")}
+    verify = {kv: attention[f"verify_{kv}"] for kv in ("bf16", "int8")}
     w8 = check_w8(txt, 368, gen)  # the W8 bench shape: 368 rows
     torch.cuda.empty_cache()
     bwd = backward_checks(stage, gen)  # kernels 8 and 9 and kernel 1's lse
@@ -1999,20 +2132,25 @@ def main(argv=None) -> int:
     train = train_path(args)
     phase_done("training path")
 
-    f, d = flash["vggt_global"], decode["bf16"]
+    f, d, d8 = flash["vggt_global"], decode["bf16"], attention["decode_w8"]
     lse = bwd["vggt_global"]["flash_fwd_lse"]
     kernels = [
         dict(name="flash_fwd", route="cuda", source="vggt_qwen3_tpu_torch/csrc/flash_fwd.cu",
              replaces=FLASH_REPLACES, launches=runs[None][0], **f, lse_shape=lse["shape"],
              lse_ms=lse["ms_with_lse"], no_lse_ms=lse["ms_without"], training_launches=train["counts"]["flash_fwd"]),
-        dict(name="decode_attention", route="cuda", source="vggt_qwen3_tpu_torch/csrc/decode_attention.cu",
-             replaces=DECODE_REPLACES, launches=runs[None][1], **d),
-        dict(name="block_verify_attention", route="cuda", source="vggt_qwen3_tpu_torch/csrc/block_verify.cu",
-             replaces=VERIFY_REPLACES, launches=arkit_spec["block_verify_attention"], **verify["bf16"]),
+        dict(name="decode_attention", route="cuda", source=ATTENTION_SOURCE, replaces=DECODE_REPLACES,
+             launches=runs[None][1], **d, w8_shape=d8["shape"], w8_launches=w8_counts["decode_attention"],
+             w8_ms=d8["ms"], w8_plain_ms=d8["plain_ms"], w8_library_ms=d8["library_ms"], w8_library=d8["library"],
+             w8_bound_ms=d8["bound_ms"], w8_max_abs_err=d8["max_abs_err"]),
+        dict(name="block_verify_attention", route="cuda", source=ATTENTION_SOURCE, replaces=VERIFY_REPLACES,
+             launches=arkit_spec["block_verify_attention"], **verify["bf16"]),
     ] + [dict(name=n, route="cuda", source=W8_SOURCE, replaces=W8_REPLACES[n], launches=w8_counts[n], **w8[n])
          for n in W8_REPLACES] + [
         dict(name=n, route="cuda", source=BWD_SOURCE, replaces=BWD_REPLACES[n], launches=train["counts"][n],
              **bwd["vggt_global"][n]) for n in BWD_REPLACES]
+    for kr in kernels:
+        not_below_bound(kr["name"], kr["ms"], kr["bound_ms"])
+    not_below_bound("decode_attention (W8 shape)", d8["ms"], d8["bound_ms"])
     print(f"int8-cache run launches: flash {runs['int8'][0]}, decode {runs['int8'][1]}", flush=True)
     print(f"ARKit plain constrained run launches: {json.dumps(arkit_plain)}", flush=True)
     print(f"training run (freeze_vision false, {2 * TRAIN_GRAD_ACCUM} micro steps) launches: "

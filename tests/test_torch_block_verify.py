@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from vggt_qwen3_tpu import config as jconfig
 from vggt_qwen3_tpu.models import qwen3 as jqwen3
 from vggt_qwen3_tpu.ops.attention import mha as jax_mha
@@ -33,6 +34,7 @@ from vggt_qwen3_tpu.ops.decode_attention import gqa_block_verify_attention as ja
 from vggt_qwen3_tpu_torch import config as pconfig
 from vggt_qwen3_tpu_torch.models import qwen3 as pqwen3
 from vggt_qwen3_tpu_torch.ops import decode_attention as pdecode
+from vggt_qwen3_tpu_torch.ops import kernel_build
 from vggt_qwen3_tpu_torch.utils.from_jax import array_to_torch, params_from_jax
 
 L, B, NH, NKV, T, D = 3, 4, 8, 2, 48, 64
@@ -240,3 +242,17 @@ def test_qwen3_per_row_write_past_the_cache_end_stays_in_its_row():
         got, want = _f32(pc[n]), np.asarray(jc[n])
         np.testing.assert_allclose(got[:, 0], want[:, 0], atol=1e-4, rtol=1e-4)
         np.testing.assert_allclose(got[0, 1], want[0, 1], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("variant", sorted(chip_smoke.TILES["decode_attention"][0]))
+def test_attention_tile_variants_name_defines_the_source_reads(variant):
+    """The sweep of kernels 2 and 3 (``chip_smoke.py --tiles
+    decode_attention``) builds each variant with nvcc defines;
+    ``kernel_build.rebuild`` refuses a define the source does not read under
+    ``#ifndef``, so a renamed define cannot time the shipped build under
+    another name."""
+    defines = chip_smoke.TILES["decode_attention"][0][variant]
+    src = (kernel_build.CSRC / "decode_attention.cu").read_text()
+    assert defines and all(f"#ifndef {k}\n" in src for k in defines)
+    with pytest.raises(ValueError, match="reads no define"):
+        kernel_build.rebuild("decode_attention", {**defines, "NO_SUCH_SIZE": 1})

@@ -8,7 +8,10 @@ Imports only torch and the port, so it runs where JAX is not installed:
 suite.) Whether a card is present is decided inside each test body, so every
 pytest worker collects the same tests; without a card they skip.
 Tolerance: ``utils.agreement`` with tol 2e-2, scaled to the reference (every
-element within 2e-2·max|ref| + 2e-2·|ref|, ‖err‖₂ ≤ 5e-3·‖ref‖₂); rows with
+element within 2e-2·max|ref| + 2e-2·|ref|, ‖err‖₂ ≤ 5e-3·‖ref‖₂), and for
+decode attention and block verify in the split tests ‖err‖₂ ≤ 2e-4·‖ref‖₂
+(they keep P in f32 as a bf16 head and residual; P rounded to bf16 once
+read 2.1e-3 on an H100); rows with
 no valid key exactly 0; the block-verify kernel's inputs hold 1e4 in every
 slot no query sees, so a kernel that reads past a frontier fails. The W8 head: the same token on rows whose top-2 gap
 exceeds 1e-4·max|logit| (f32 sums in another order move a logit by far
@@ -248,6 +251,149 @@ def test_block_verify_wrapper_raises_on_shapes_the_kernel_does_not_take():
         pdecode.gqa_block_verify_attention(q, k, v, 3, start, off)
     with pytest.raises(ValueError):  # not contiguous
         pdecode.gqa_block_verify_attention(q.transpose(1, 2), k, v, 0, start, off)
+
+
+ATTENTION_REL_RMS = 2e-4  # ‖err‖₂ / ‖ref‖₂ of kernels 2 and 3, as chip_smoke.py holds them
+
+
+def _attention_inputs(g, S, T, starts, lasts, quant, *, NH=32, NKV=8, D=128, L=2):
+    """Rows whose queries see [start, last - (S - 1) + j) (decode: S = 1,
+    kv_end = last; verify: kv_off = last - S), and 1e4 in every slot no
+    query of a row sees. Returns the arguments of both wrappers at layer 1
+    (kv_end or kv_off as the fifth) and the [B, S] queries with no slot."""
+    B = len(starts)
+    q = torch.randn(B, S, NH, D, device="cuda", generator=g).bfloat16()
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    last = torch.tensor(lasts, dtype=torch.int32, device="cuda")
+    pos = torch.arange(T, device="cuda")
+    s0 = start.long().clamp(0, T)
+    hidden = ((pos[None] < s0[:, None]) | (pos[None] >= last.long().clamp(0, T)[:, None]))[None, :, None, :]
+    if quant:
+        k = torch.randint(-127, 128, (L, B, NKV, T, D), device="cuda", generator=g, dtype=torch.int8)
+        v = torch.randint(-127, 128, (L, B, NKV, T, D), device="cuda", generator=g, dtype=torch.int8)
+        ks = (torch.rand(L, B, NKV, T, device="cuda", generator=g) * 0.02).bfloat16().masked_fill_(hidden, 1e4)
+        vs = (torch.rand(L, B, NKV, T, device="cuda", generator=g) * 0.02).bfloat16().masked_fill_(hidden, 1e4)
+    else:
+        k = torch.randn(L, B, NKV, T, D, device="cuda", generator=g).bfloat16().masked_fill_(hidden[..., None], 1e4)
+        v = torch.randn(L, B, NKV, T, D, device="cuda", generator=g).bfloat16().masked_fill_(hidden[..., None], 1e4)
+        ks = vs = None
+    ends = last - S if S > 1 else last  # kv_off for verify, kv_end for decode
+    q_end = (ends.long() + (1 if S > 1 else 0)).clamp(0, T - (S - 1))[:, None] + torch.arange(S, device="cuda")
+    empty = s0[:, None] >= q_end
+    return (q if S > 1 else q[:, 0].contiguous(), k, v, 1, start, ends, ks, vs), empty
+
+
+def _attend(args, S):
+    """The kernel (decode for S = 1, verify else) and its plain version."""
+    if S == 1:
+        return pdecode.gqa_decode_attention(*args), pdecode.gqa_decode_attention_plain(*args)
+    return pdecode.gqa_block_verify_attention(*args), pdecode.gqa_block_verify_attention_plain(*args)
+
+
+def _held(got, ref, empty, S):
+    torch.cuda.synchronize()
+    if S == 1:
+        got, ref = got[:, None], ref[:, None]
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert not got[empty].any(), "a query with no valid slot must give exactly 0"
+    agree = agreement(got[~empty], ref[~empty])
+    assert agree["ok"] and agree["rel_rms"] <= ATTENTION_REL_RMS, agree
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("S", [1, 7, 32])
+def test_attention_splits_at_their_edges(S, quant):
+    """T = 215 (not a multiple of the tile) in 4 splits. The kernel cuts a
+    row's slots [start, last) into shares of ceil(ceil(n / 4) / 16) · 16
+    slots counted back from ``last``; the rows below hit these edges."""
+    _need_card()
+    T = 215
+    plan = pdecode.attention_plan(8, S, 32, 8, T, 128, quant)
+    assert plan["splits"] == 4, plan
+    starts, lasts = zip(
+        (0, 215),    # the whole cache: shares of 64, the first one cut to 23 at start
+        (3, 131),    # n = 128: every split exactly full, [3, 35) [35, 67) [67, 99) [99, 131)
+        (10, 139),   # n = 129: shares of 48, the first split empty
+        (50, 60),    # n = 10: only the last split has slots
+        (215, 215),  # start = T: every split empty, every query exactly 0
+        (-5, 300),   # bounds clamped to [0, T)
+        (0, 65),     # n = 65: shares of 32, one slot in the second split, [0, 1)
+        (0, 64),     # n = 64: shares of 16; at S = 32 query 15's frontier is split 2's last slot
+    )                #   (47, in [32, 48)) and query 16's split 3's first (48)
+    args, empty = _attention_inputs(torch.Generator(device="cuda").manual_seed(20), S, T, starts, lasts, quant)
+    got, ref = _attend(args, S)
+    assert empty[4].all() and (S != 32 or empty[3, 0])
+    _held(got, ref, empty, S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("S", [1, 7])
+@pytest.mark.parametrize("B,T,splits", [(40, 100, 1), (1, 600, 8)])
+def test_attention_at_one_split_and_the_most(B, T, splits, S, quant):
+    """P = 1 (320 (row, head) pairs) and the largest P = 8 (one row, 600 slots)."""
+    _need_card()
+    assert pdecode.attention_plan(B, S, 32, 8, T, 128, quant)["splits"] == splits
+    rng = torch.Generator().manual_seed(B)
+    starts = torch.randint(0, T // 3, (B,), generator=rng).tolist()
+    lasts = torch.randint(T // 2, T + 1, (B,), generator=rng).tolist()
+    args, empty = _attention_inputs(torch.Generator(device="cuda").manual_seed(21), S, T, starts, lasts, quant)
+    got, ref = _attend(args, S)
+    _held(got, ref, empty, S)
+
+
+@pytest.mark.gpu
+def test_decode_at_the_w8_bench_shape():
+    """B = 368, int8 cache of 160 slots, every row's frontier at 97 (the
+    bench's mean): one split; two launches equal bit for bit."""
+    _need_card()
+    B, T = 368, 160
+    assert pdecode.attention_plan(B, 1, 32, 8, T, 128, True)["splits"] == 1
+    args, empty = _attention_inputs(torch.Generator(device="cuda").manual_seed(22), 1, T, [0] * B, [97] * B, True)
+    got, ref = _attend(args, 1)
+    _held(got, ref, empty, 1)
+    assert torch.equal(got, pdecode.gqa_decode_attention(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("S", [1, 7])
+def test_attention_repeats_bit_for_bit(S, quant):
+    """The cluster merges its splits in split order: no atomics, so two
+    launches on the same inputs are equal bit for bit (4 splits)."""
+    _need_card()
+    T = 400
+    assert pdecode.attention_plan(8, S, 32, 8, T, 128, quant)["splits"] == 4
+    args, _ = _attention_inputs(torch.Generator(device="cuda").manual_seed(23), S, T, [0, 5, 9, 100, 0, 1, 2, 3],
+                                [400, 399, 300, 380, 17, 250, 128, 129], quant)
+    one = _attend(args, S)[0]
+    assert torch.equal(one, _attend(args, S)[0])
+
+
+@pytest.mark.gpu
+def test_attention_plan_invariants():
+    """The kernel's cut (``attention_plan``): 1 ≤ P ≤ 8 (a cluster), a power
+    of two, at most one split a tile of the cache, the same for the same
+    shapes; P = 1 at the W8 bench (B · NKV = 2944), P ≥ 2 at the QA decode
+    shape and 4-8 at the ARKit verify block; a block's warps and shared
+    memory fit the card."""
+    _need_card()
+    for B in (1, 2, 4, 8, 33, 64, 368, 1024):
+        for T in (1, 16, 63, 64, 65, 160, 215, 832, 4096):
+            for S in (1, 7, 32):
+                if S > T:
+                    continue
+                for quant in (False, True):
+                    p = pdecode.attention_plan(B, S, 32, 8, T, 128, quant)
+                    assert p == pdecode.attention_plan(B, S, 32, 8, T, 128, quant)
+                    P = p["splits"]
+                    assert P in (1, 2, 4, 8) and P <= -(-T // p["tile_slots"]), (B, T, S, p)
+                    assert 32 * p["warps"] <= (128 if S == 1 else 256) and p["smem"] <= 232448, (B, T, S, p)
+                    assert p["slots_per_warp"] in (16, 32, 64) and p["ring_stages"] >= 2
+    assert pdecode.attention_plan(368, 1, 32, 8, 160, 128, True)["splits"] == 1
+    assert pdecode.attention_plan(8, 1, 32, 8, 215, 128, False)["splits"] >= 2
+    assert 4 <= pdecode.attention_plan(4, 7, 32, 8, 832, 128, False)["splits"] <= 8
 
 
 

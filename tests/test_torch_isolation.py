@@ -110,3 +110,16 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                               timeout=120, env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("argv", [["--build", "own"], ["--tiles", "decode_attention", "--build", "blocks_528"],
+                                  ["--tiles", "flash_bwd", "--build", "tile_64_slots"]])
+def test_chip_smoke_build_takes_tiles_and_a_build_of_its_table(argv):
+    """``--build`` names one build of the swept source: ``own`` or a name of
+    its TILES table; anything else stops at the arguments, before a card is
+    looked for."""
+    import chip_smoke
+
+    with pytest.raises(SystemExit) as stop:
+        chip_smoke.main(argv)
+    assert stop.value.code == 2

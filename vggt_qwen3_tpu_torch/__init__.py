@@ -9,10 +9,9 @@ and function names so each counterpart is easy to find:
 - ``ops/``      : norms, RoPE, sampling, preprocessing, W8 quantization and
   the kernel entry points. The kernels are hand-written CUDA C++ for Hopper
   (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` — the flash backward —,
-  ``csrc/decode_attention.cu``,
-  ``csrc/block_verify.cu`` — speculative block-verify attention — and
-  ``csrc/decode_matmul.cu``), each with its plain PyTorch version beside its
-  wrapper.
+  ``csrc/decode_attention.cu`` — decode and speculative block-verify
+  attention — and ``csrc/decode_matmul.cu``), each with its plain PyTorch
+  version beside its wrapper.
 - ``inference/``: KV-cache engine (constraint FSM, per-row budgets),
   prompt-lookup speculative decoding, the action-JSON constraint tables,
   batching, and the QA and ARKit CLIs (``python -m

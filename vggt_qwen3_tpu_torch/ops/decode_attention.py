@@ -5,11 +5,16 @@ Counterpart of ``vggt_qwen3_tpu/ops/decode_attention.py`` (the Pallas
 ``_decode_kernel``, reached through ``gqa_decode_attention`` and
 ``gqa_block_verify_attention``):
 
-- :func:`gqa_decode_attention` (``csrc/decode_attention.cu``): one query
-  token per row attends to the slots ``[kv_start, kv_end)``;
-- :func:`gqa_block_verify_attention` (``csrc/block_verify.cu``): the
-  speculative verify block, S query tokens per row, query j attending to
-  ``[kv_start, kv_off + 1 + j)`` (in-block causality at per-row depths).
+- :func:`gqa_decode_attention`: one query token per row attends to the
+  slots ``[kv_start, kv_end)``;
+- :func:`gqa_block_verify_attention`: the speculative verify block, S query
+  tokens per row, query j attending to ``[kv_start, kv_off + 1 + j)``
+  (in-block causality at per-row depths).
+
+Both launch one kernel body of ``csrc/decode_attention.cu`` (decode is the
+verify block with S = 1), under two kernel names and two launch counters.
+How a launch is cut (splits of the cache per row, warps, shared memory) is
+the source's own plan, a function of the shapes alone: :func:`attention_plan`.
 
 Both read layer ``li`` of the whole stacked cache ``[L, B, NKV, T, D]``.
 ``cache[li]`` is a view in PyTorch, and the kernels read the layer by
@@ -74,12 +79,31 @@ def gqa_decode_attention_plain(
 
 
 def _lib():
-    fn = kernel_build.load("decode_attention").lib.decode_attention
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 8 + [I] * 6 + [ctypes.c_float, P]
-        fn.restype = ctypes.c_int
-    return fn
+    lib = kernel_build.load("decode_attention").lib
+    if lib.decode_attention.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.decode_attention.argtypes = [P] * 8 + [I] * 6 + [F, P]
+        lib.decode_attention.restype = I
+        lib.block_verify_attention.argtypes = [P] * 8 + [I] * 7 + [F, P]
+        lib.block_verify_attention.restype = I
+        lib.attention_plan.argtypes = [I] * 7 + [P]
+        lib.attention_plan.restype = I
+    return lib
+
+
+def attention_plan(B: int, S: int, NH: int, NKV: int, T: int, D: int, quant: bool) -> dict:
+    """The kernel's own cut of a launch (``attention_plan`` in
+    ``csrc/decode_attention.cu``, built on first use): ``splits`` of each
+    row's cache (one thread-block cluster), ``warps`` a block,
+    ``slots_per_warp`` of each tile, dynamic shared memory ``smem`` bytes,
+    ``tile_slots``, ``ring_stages``, and from the CUDA occupancy calculator
+    ``blocks_per_sm`` and ``clusters`` (the most the card holds at once).
+    Decode is S = 1."""
+    buf = (ctypes.c_int * 8)()
+    kernel_build.check(_lib().attention_plan(B, S, NH, NKV, T, D, int(quant), ctypes.addressof(buf)),
+                       "attention_plan")
+    return dict(zip(("splits", "warps", "slots_per_warp", "smem", "tile_slots", "ring_stages", "blocks_per_sm",
+                     "clusters"), buf))
 
 
 def gqa_decode_attention(
@@ -91,9 +115,10 @@ def gqa_decode_attention(
     """Single-token GQA decode attention over the stacked cache.
 
     CPU tensors take :func:`gqa_decode_attention_plain`; CUDA tensors launch
-    the ``csrc/decode_attention.cu`` kernel or raise. The kernel takes bf16
-    ``q``, a contiguous bf16 or int8 cache (int8 with bf16 ``ks``/``vs``),
-    D ∈ {64, 128} and at most 8 query heads per kv head.
+    the ``csrc/decode_attention.cu`` kernel (``decode_kernel``) or raise.
+    The kernel takes bf16 ``q``, a contiguous bf16 or int8 cache (int8 with
+    bf16 ``ks``/``vs``), D ∈ {64, 128} and at most 8 query heads per kv
+    head.
     """
     global launches
     if q.device.type == "cpu":
@@ -132,7 +157,7 @@ def gqa_decode_attention(
         return x.data_ptr() + int(li) * x.stride(0) * x.element_size()
 
     out = torch.empty((B, NH, D), dtype=torch.bfloat16, device=q.device)
-    rc = _lib()(
+    rc = _lib().decode_attention(
         q.data_ptr(), layer_ptr(k), layer_ptr(v),
         layer_ptr(ks) if quant else None, layer_ptr(vs) if quant else None,
         out.data_ptr(), start.data_ptr(), end.data_ptr(),
@@ -187,15 +212,6 @@ def gqa_block_verify_attention_plain(
     return (pv / l.clamp_min(1e-20)).reshape(B, S, NH, D).to(q.dtype)
 
 
-def _verify_lib():
-    fn = kernel_build.load("block_verify").lib.block_verify_attention
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def gqa_block_verify_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: int,
     kv_start: torch.Tensor, kv_off: torch.Tensor,
@@ -206,7 +222,8 @@ def gqa_block_verify_attention(
     tokens per row, query j seeing ``[kv_start, kv_off + 1 + j)``.
 
     CPU tensors take :func:`gqa_block_verify_attention_plain`; CUDA tensors
-    launch the ``csrc/block_verify.cu`` kernel or raise. The kernel takes
+    launch the ``csrc/decode_attention.cu`` kernel (``verify_kernel``) or
+    raise. The kernel takes
     bf16 ``q`` [B, S, NH, D], a contiguous bf16 or int8 cache (int8 with
     bf16 ``ks``/``vs``), D ∈ {64, 128}, S ≤ T and at most
     ``MAX_VERIFY_ROWS`` score rows S · NH / NKV.
@@ -247,7 +264,7 @@ def gqa_block_verify_attention(
         return x.data_ptr() + int(li) * x.stride(0) * x.element_size()
 
     out = torch.empty((B, S, NH, D), dtype=torch.bfloat16, device=q.device)
-    rc = _verify_lib()(
+    rc = _lib().block_verify_attention(
         q.data_ptr(), layer_ptr(k), layer_ptr(v),
         layer_ptr(ks) if quant else None, layer_ptr(vs) if quant else None,
         out.data_ptr(), start.data_ptr(), off.data_ptr(),
