@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--max_new_tokens 32]
-    python3 chip_smoke.py --tiles flash_bwd|decode_matmul|decode_attention [--build NAME] [--package_root DIR]
+    python3 chip_smoke.py --tiles flash_fwd|flash_bwd|decode_matmul|decode_attention [--build NAME] [--package_root DIR]
     python3 chip_smoke.py --w8_bench [--package_root DIR]
 
 Run from the root of a checkout. It:
@@ -12,7 +12,7 @@ Run from the root of a checkout. It:
    (flash forward, the two flash backward kernels, decode and block-verify
    attention, the four W8 decode kernels) with ``nvcc`` for sm_90a, in
    parallel, prints the ptxas report and fails on a spill in the sources
-   redesigned for Hopper (``TILES``: flash_bwd, decode_matmul,
+   redesigned for Hopper (``TILES``: flash_fwd, flash_bwd, decode_matmul,
    decode_attention);
 3. holds each kernel against its plain PyTorch version at its main path's
    shapes (``utils.agreement``, tol 2e-2 scaled to the reference: every
@@ -43,9 +43,16 @@ Run from the root of a checkout. It:
    ``torch.mm`` for the down projection alone), two launches of each on the
    same inputs equal bit for bit; the kernel's cut of each w8_gemm launch
    (``w8_gemm_plan``) and the bounds of the MLP's two launches and of the
-   8-row shapes are printed on a line of their own. The flash backward
+   8-row shapes are printed on a line of their own. The flash forward runs
+   at the QA batch's VGGT frame [64, 1029, 16, 64] and global
+   [8, 8232, 16, 64] shapes, the training global shape with its lse output
+   (within 1e-3 of the plain version's, exactly -1e30 on dead rows), the
+   QA prefill (causal, left-padded, 32/8 heads, D = 128) and the W8 bench's
+   prefill (368 prompts of 32 tokens), each with its
+   bound beside the floor of its exponentials on a line of its own
+   (``flash_fwd_floors``). The flash backward
    kernels (dq; dk/dv) and the
-   forward's lse output run at the training shapes — VGGT frame
+   forward's lse output (their input: within 1e-3, -1e30 on dead rows) run at the training shapes — VGGT frame
    [16, 1029, 16, 64] and global [2, 8232, 16, 64] — and at a causal,
    left-padded GQA shape [2, 512, 32/8, 128], with 1e4 in every K/V slot
    outside a row's frontier; query rows with no key and keys no query sees
@@ -118,7 +125,8 @@ last so that the spread of the call shows beside the differences, each
 build in a process of its own: ``flash_bwd`` runs the flash backward at its
 three shapes, ``decode_matmul`` the W8 layer kernels (QKV and WO at 368 and
 8 rows, the MLP's two launches; no head), ``decode_attention`` kernels 2 and
-3 at the QA, W8 and ARKit shapes. ``--build NAME`` runs one build alone:
+3 at the QA, W8 and ARKit shapes, ``flash_fwd`` kernel 1 at the VGGT global,
+training (with lse) and frame shapes and the QA and W8 prefills. ``--build NAME`` runs one build alone:
 ``own`` (the source's defines) or a name of ``TILES[SOURCE]``.
 ``--w8_bench`` drives only the W8 bench path (tok/s, decode step, launch
 counts, profile by kernel family). ``--package_root DIR`` imports the port
@@ -145,6 +153,7 @@ H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak
 H100_SMS = 132
 H100_EXP_PER_SM_CLOCK = 16   # ex2 on the special function units: 4 quadrants x 4 a clock
 FLASH_REPLACES = "vggt_qwen3_tpu/ops/flash_attention.py:41"
+FLASH_SOURCE = "vggt_qwen3_tpu_torch/csrc/flash_fwd.cu"
 DECODE_REPLACES = "vggt_qwen3_tpu/ops/decode_attention.py:55"
 VERIFY_REPLACES = "vggt_qwen3_tpu/ops/decode_attention.py:317"
 ARKIT_SCENES = "data/processed/arkit_synth/test.json"
@@ -177,6 +186,20 @@ W8_GEMM_TILES = {
     "wide_parts_8": {"W8_WIDE_PARTS": 8},
     "small_part_steps_5": {"W8_SMALL_PART_STEPS": 5},
     "small_part_steps_20": {"W8_SMALL_PART_STEPS": 20},
+}
+# other tile, ring and warpgroup counts of kernel 1 (csrc/flash_fwd.cu) and
+# its two overlaps, as the nvcc defines it reads (its own: at D = 64 three
+# consumer warpgroups of 64 rows, 128-key stages and a ring of 3; at D = 128
+# two warpgroups, 64 keys, a ring of 2; both overlaps on)
+FLASH_FWD_TILES = {
+    "consumers_2": {"FWD_CONSUMERS_64": 2},
+    "keys_64": {"FWD_KEYS_64": 64},
+    "stages_2": {"FWD_STAGES_64": 2},
+    "stages_4": {"FWD_STAGES_64": 4},
+    "no_overlap": {"FWD_OVERLAP": 0},
+    "no_pingpong": {"FWD_PINGPONG": 0},
+    "d128_keys_128": {"FWD_KEYS_128": 128},
+    "d128_stages_3": {"FWD_STAGES_128": 3},
 }
 # other tile, ring and split sizes of kernels 2 and 3 (csrc/decode_attention.cu),
 # as the nvcc defines it reads (its own: 32-slot tiles, a ring of 2, at most 8
@@ -388,8 +411,12 @@ def not_below_bound(what: str, ms: float, bms: float) -> None:
         raise AssertionError(f"{what}: {ms} ms a launch reads below its bound of {bms} ms")
 
 
-def check_flash(name, B, S, T, NH, NKV, D, *, causal, starts, gen):
-    """Kernel vs plain at one shape; returns the measurement dict."""
+def check_flash(name, B, S, T, NH, NKV, D, *, causal, starts, gen, with_lse=False):
+    """Kernel 1 against its plain version at one shape (with ``with_lse`` the
+    lse output too, within 1e-3 and exactly -1e30 on dead rows, and the
+    times are of the call that writes it); returns the measurement dict and
+    prints the bound beside the floor of the exponentials on a line of its
+    own (``flash_fwd_floors``)."""
     import torch
     import torch.nn.functional as F
 
@@ -406,14 +433,26 @@ def check_flash(name, B, S, T, NH, NKV, D, *, causal, starts, gen):
         # the plain version materialises f32 scores: above 8 GiB of them it
         # runs one batch row at a time (the VGGT global shape, B=8: 35 GB)
         if B * NH * S * T * 4 <= 2**33:
-            return fa.flash_attention_plain(q, k, v, **kw)
-        return torch.cat([fa.flash_attention_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal,
-                                                   kv_start=start[b:b + 1], kv_end=end[b:b + 1])
-                          for b in range(B)])
+            return fa.flash_attention_plain_with_lse(q, k, v, **kw)
+        outs = [fa.flash_attention_plain_with_lse(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal,
+                                                  kv_start=start[b:b + 1], kv_end=end[b:b + 1]) for b in range(B)]
+        return torch.cat([o for o, _ in outs]), torch.cat([l for _, l in outs])
 
-    got = fa.flash_attention(q, k, v, **kw)
+    def kernel():
+        return fa.flash_attention_with_lse(q, k, v, **kw) if with_lse else fa.flash_attention(q, k, v, **kw)
+
+    got = kernel()
     torch.cuda.synchronize()
-    ref = plain()
+    ref, ref_lse = plain()
+    lse_err = None
+    if with_lse:
+        got, lse = got
+        lse_live = ref_lse > -1e29
+        lse_err = (lse[lse_live] - ref_lse[lse_live]).abs().max().item()
+        if lse_err > 1e-3 or not (lse[~lse_live] == -1e30).all():
+            raise AssertionError(f"flash_fwd lse[{name}]: max abs err {lse_err}, or a dead row not -1e30")
+        del lse
+    del ref_lse
     live = torch.ones(B, S, dtype=torch.bool, device="cuda")
     for b, s0 in enumerate(starts):
         if causal:
@@ -429,8 +468,8 @@ def check_flash(name, B, S, T, NH, NKV, D, *, causal, starts, gen):
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     lib = (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=NH != NKV)) \
         if (causal or any(starts)) else (lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=NH != NKV))
-    call_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=10)
-    ms = device_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=10)
+    call_ms = cuda_ms(kernel, iters=10)
+    ms = device_ms(kernel, iters=10)
     plain_ms = device_ms(plain, iters=2)
     library_ms = device_ms(lib, iters=10)
     # work this data needs: valid (query, key) pairs only
@@ -440,10 +479,19 @@ def check_flash(name, B, S, T, NH, NKV, D, *, causal, starts, gen):
         pairs = sum(S * (T - s0) for s0 in starts)
     flops = 4 * NH * D * pairs
     nbytes = 2 * (2 * B * S * NH * D + 2 * B * T * NKV * D)
+    if with_lse:
+        nbytes += 4 * B * NH * S
     bms, by = bound_ms(nbytes, flops)
-    out = dict(shape=f"{name} q[{B},{S},{NH},{D}] kv[{B},{T},{NKV},{D}] causal={causal}",
+    # one exponential per valid score on the SMs' special function units:
+    # 16 a clock per SM at the card's highest SM clock
+    exp_floor = NH * pairs / (H100_SMS * H100_EXP_PER_SM_CLOCK * sm_clock_hz()) * 1e3
+    out = dict(shape=f"{name} q[{B},{S},{NH},{D}] kv[{B},{T},{NKV},{D}] causal={causal}"
+                     + (" with lse" if with_lse else ""),
                **agree, ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bms, bound_by=by)
+    if with_lse:
+        out["lse_max_abs_err"] = lse_err
+    print(f"flash_fwd_floors[{name}] bound_ms {bms:.4f} ({by}); exp_floor_ms {exp_floor:.4f}", flush=True)
     print(f"flash_fwd {json.dumps(out)}", flush=True)
     return out
 
@@ -478,7 +526,8 @@ def device_ms_by_kernel(fn, iters: int) -> dict:
 
 
 def check_flash_backward(name, B, S, NH, NKV, D, *, causal, starts, ends, gen):
-    """Kernels 8 and 9 (and kernel 1's lse output) against their plain
+    """Kernels 8 and 9 (and the lse they are given, kernel 1's, within 1e-3
+    of the plain version's and -1e30 on dead rows) against their plain
     versions at one shape (S = T), with 1e4 in every K/V slot outside a row's
     frontier; query rows with no valid key must get exactly 0. The plain
     versions materialise [S, T] f32 scores, so they run one kv head (its GQA
@@ -549,14 +598,12 @@ def check_flash_backward(name, B, S, NH, NKV, D, *, causal, starts, ends, gen):
     delta_ms = sum(by.values()) - dq_ms - dkv_ms
     call_ms = cuda_ms(lambda: fa.flash_attention_backward(q, k, v, start, end, out, lse, d_out, causal=causal),
                       iters=5)
-    fwd_ms = device_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=5)
-    fwd_lse_ms = device_ms(lambda: fa.flash_attention_with_lse(q, k, v, **kw), iters=5)
     plain_ms = device_ms(plain, iters=1)
-    # SDPA's backward kernels alone: the graph of one forward, differentiated repeatedly
-    q_, k_, v_ = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     mask = (~outside)[:, None, None, :]
     if causal:
         mask = mask & (pos[None, :] <= pos[:, None])
+    # SDPA's backward kernels alone: the graph of one forward, differentiated repeatedly
+    q_, k_, v_ = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     o_ = F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask if (causal or outside.any()) else None,
                                         enable_gqa=NH != NKV)
     g_ = d_out.transpose(1, 2)
@@ -579,13 +626,13 @@ def check_flash_backward(name, B, S, NH, NKV, D, *, causal, starts, ends, gen):
           f"exp_floor_ms {exp_floor:.4f} a kernel", flush=True)
     res = {
         "flash_bwd_dq": dict(shape=shape, **agree["dq"], ms=dq_ms, call_ms=call_ms, delta_ms=delta_ms,
-                             plain_ms=plain_ms, library_ms=library_ms, bound_ms=dq_bound, bound_by=dq_by),
+                             plain_ms=plain_ms, library_ms=library_ms, bound_ms=dq_bound, bound_by=dq_by,
+                             lse_max_abs_err=lse_err),
         "flash_bwd_dkv": dict(shape=shape, **{f"dk_{a}": b for a, b in agree["dk"].items()},
                               **{f"dv_{a}": b for a, b in agree["dv"].items()},
                               max_abs_err=max(agree["dk"]["max_abs_err"], agree["dv"]["max_abs_err"]),
                               ms=dkv_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=dkv_bound,
                               bound_by=dkv_by),
-        "flash_fwd_lse": dict(shape=shape, lse_max_abs_err=lse_err, ms_with_lse=fwd_lse_ms, ms_without=fwd_ms),
     }
     for n, r in res.items():
         print(f"{n} {json.dumps(r)}", flush=True)
@@ -681,9 +728,54 @@ def attention_times(stage, gen) -> dict:
                        rel_rms=r["rel_rms"]) for name, r in attention_checks(stage, gen).items()}
 
 
+def qa_prefill(stage, seed: int):
+    """The QA batch's prefill: its length S (8 prompts left-padded, the
+    vision tokens spliced in) and each row's first valid slot."""
+    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
+    from vggt_qwen3_tpu_torch.inference.batching import max_prompt_len
+
+    tok = load_tokenizer(None)
+    prompts = [f"{s['question']}\n<image>\n" for s in load_samples(seed)]
+    pad_to = max_prompt_len(tok, prompts)
+    return pad_to + stage.model.num_vis_tokens - 1, [pad_to - len(tok(p)["input_ids"]) for p in prompts]
+
+
+def flash_checks(stage, gen, seed: int = 0) -> dict:
+    """Kernel 1 at its main paths' shapes: the QA batch's VGGT frame and
+    global attentions (8 samples x 8 views), the training global attention
+    with lse (2 samples), the QA prefill (causal, left-padded, GQA,
+    D = 128) and the W8 bench's prefill (368 prompts of 32 tokens)."""
+    from vggt_qwen3_tpu_torch import bench
+
+    vis, txt = stage.model.vision, stage.model.text
+    w8 = bench.parse_args([])
+    tpf = vis.patch_start_idx + (stage.data.image_size // vis.patch_size) ** 2  # 1029 at 448²
+    B, V, D, NH = 8, stage.data.num_views, vis.embed_dim // vis.num_heads, vis.num_heads
+    S, starts = qa_prefill(stage, seed)
+    return {
+        "vggt_frame": check_flash("vggt_frame", B * V, tpf, tpf, NH, NH, D, causal=False, starts=[0] * (B * V),
+                                  gen=gen),
+        "vggt_global": check_flash("vggt_global", B, V * tpf, V * tpf, NH, NH, D, causal=False, starts=[0] * B,
+                                   gen=gen),
+        "train_global": check_flash("train_global", TRAIN_BATCH, V * tpf, V * tpf, NH, NH, D, causal=False,
+                                    starts=[0] * TRAIN_BATCH, gen=gen, with_lse=True),
+        "qwen3_prefill": check_flash("qwen3_prefill", B, S, S, txt.num_heads, txt.num_kv_heads, txt.head_dim,
+                                     causal=True, starts=starts, gen=gen),
+        "w8_prefill": check_flash("w8_prefill", w8.batch, w8.prompt, w8.prompt, txt.num_heads, txt.num_kv_heads,
+                                  txt.head_dim, causal=True, starts=[0] * w8.batch, gen=gen),
+    }
+
+
+def flash_fwd_times(stage, gen) -> dict:
+    """flash_checks' device ms of each shape, beside SDPA's, the bound and
+    the rel RMS against the plain version."""
+    return {name: dict(ms=r["ms"], library_ms=r["library_ms"], bound_ms=r["bound_ms"], rel_rms=r["rel_rms"])
+            for name, r in flash_checks(stage, gen).items()}
+
+
 # csrc/<source>.cu -> (its variants as nvcc defines, the check that times a build)
-TILES = {"flash_bwd": (FLASH_BWD_TILES, flash_bwd_times), "decode_matmul": (W8_GEMM_TILES, w8_gemm_times),
-         "decode_attention": (ATTENTION_TILES, attention_times)}
+TILES = {"flash_fwd": (FLASH_FWD_TILES, flash_fwd_times), "flash_bwd": (FLASH_BWD_TILES, flash_bwd_times),
+         "decode_matmul": (W8_GEMM_TILES, w8_gemm_times), "decode_attention": (ATTENTION_TILES, attention_times)}
 
 
 def ptxas_spills(lib) -> list:
@@ -1473,6 +1565,7 @@ def train_path(args):
             gen = trainer.step_generator(st.train.seed + 1, s, "cuda")
             torch.cuda.synchronize()
             fa.launches = fa.dq_launches = fa.dkv_launches = 0
+            fa.fwd_copies.update(dict.fromkeys(fa.fwd_copies, 0))
             t = time.perf_counter()
             state, m = step_fn(state, batch, gen)
             torch.cuda.synchronize()
@@ -1493,6 +1586,8 @@ def train_path(args):
               f"loss/grad_norm {metrics}; peak memory {peak:.2f} GiB", flush=True)
         if any(c != want for c in per_step):
             raise AssertionError(f"training ({what}): launches a micro step {per_step}, expected {want}")
+        if any(fa.fwd_copies.values()):  # of the last micro step
+            raise AssertionError(f"training ({what}): the flash forward copied operands {fa.fwd_copies}")
         if not all(np.isfinite(x) for m in metrics for x in m):
             raise AssertionError(f"training ({what}): loss or grad_norm not finite: {metrics}")
         if state.opt_state["gradient_step"] != n_micro // TRAIN_GRAD_ACCUM:
@@ -1578,6 +1673,7 @@ def main_path(args):
                 torch.cuda.synchronize()
                 fa.launches = 0
                 da.launches = 0
+                fa.fwd_copies.update(dict.fromkeys(fa.fwd_copies, 0))
                 t = time.perf_counter()
                 res = qa.run_inference(params, stage, tok, samples, max_new_tokens=args.max_new_tokens,
                                        batch_size=8, kv_dtype=kv, verbose=False, device="cuda")
@@ -1586,9 +1682,12 @@ def main_path(args):
                 walls[kv] = secs  # the repeat run's wall time is kept
                 counts = (fa.launches, da.launches)
                 outs.append((res, [c[0] for c in captured], counts))
+                if any(fa.fwd_copies.values()):
+                    raise AssertionError(f"kv={kv}: the flash forward copied operands {fa.fwd_copies}")
                 steps = counts[1] // stage.model.text.num_layers
                 print(f"main path kv={kv or 'bf16'} run {rep}: {secs:.3f} s, decode steps {steps}, "
-                      f"flash launches {counts[0]}, decode launches {counts[1]}, "
+                      f"flash launches {counts[0]} (operands copied for TMA: {json.dumps(fa.fwd_copies)}), "
+                      f"decode launches {counts[1]}, "
                       f"max memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
             (res_a, tok_a, cnt_a), (res_b, tok_b, cnt_b) = outs
             if res_a != res_b or any(not np.array_equal(x, y) for x, y in zip(tok_a, tok_b)):
@@ -1922,57 +2021,99 @@ def _parses_to_schema(text: str) -> bool:
         return False
 
 
+def family(name: str) -> str:
+    """The profile family of a device kernel's name."""
+    n = name.lower()
+    if "flash_fwd_kernel" in n:
+        return "flash_fwd (ours)"
+    if "flash_bwd_dq_kernel" in n:
+        return "flash_bwd_dq (ours)"
+    if "flash_bwd_dkv_kernel" in n:
+        return "flash_bwd_dkv (ours)"
+    if "decode_kernel" in n:
+        return "decode_attention (ours)"
+    if "verify_kernel" in n:
+        return "block_verify_attention (ours)"
+    if "w8_gemm_kernel" in n:
+        return "W8 GEMM w8_gemm: qkv, wo, down (ours)"
+    if "w8_swiglu_kernel" in n:
+        return "W8 gate/up w8_swiglu (ours)"
+    if "head_tile_kernel" in n or "head_reduce_kernel" in n:
+        return "head_argmax (ours)"
+    if any(w in n for w in ("gemm", "nvjet", "sm90_", "cutlass", "cublas", "xmma", "gemv")):
+        return "matmul (cuBLAS)"
+    return "other (elementwise, norms, copies, reductions)"
+
+
+def our_launches() -> dict:
+    """The kernels of our families launched so far, by family, from the
+    wrappers' launch counters (fused_mlp_w8 launches w8_swiglu and a
+    w8_gemm, fused_head_argmax two kernels, a count each)."""
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+    from vggt_qwen3_tpu_torch.ops import decode_matmul as dm
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+
+    w8 = dm.launches
+    return {"flash_fwd (ours)": fa.launches, "flash_bwd_dq (ours)": fa.dq_launches,
+            "flash_bwd_dkv (ours)": fa.dkv_launches, "decode_attention (ours)": da.launches,
+            "block_verify_attention (ours)": da.verify_launches,
+            "W8 GEMM w8_gemm: qkv, wo, down (ours)": w8["fused_qkv_w8"] + w8["fused_linear_w8"] + w8["fused_mlp_w8"],
+            "W8 gate/up w8_swiglu (ours)": w8["fused_mlp_w8"], "head_argmax (ours)": 2 * w8["fused_head_argmax"]}
+
+
+def missed_launches(launched: dict, kernel_names: list) -> dict:
+    """{family: (kernels the profiler saw, kernels launched)} for each of our
+    families whose launches (``launched``: by family, in the profiled run)
+    the profiler did not all see (``kernel_names``: one a device kernel)."""
+    seen = {}
+    for n in kernel_names:
+        seen[family(n)] = seen.get(family(n), 0) + 1
+    return {f: (seen.get(f, 0), n) for f, n in launched.items() if seen.get(f, 0) < n}
+
+
 def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None):
     """One more run of a main-path phase under torch.profiler: device time by
     kernel family and by kernel. The profiler slows the host, so the idle
     share is also given against ``unprofiled_s``, the same run's wall time
     without it. With ``range_family``, the kernels launched by ops inside the
-    ``record_function`` range of that name count to that family."""
+    ``record_function`` range of that name count to that family. A session
+    that saw fewer kernels of one of our families than its wrappers launched
+    is run again, twice at most; each family line gives its launches, and if
+    none of the three sessions saw them all, the last one's lines say how
+    many it saw ("short"): their figures miss those launches' time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+    for _ in range(3):
+        before = our_launches()
         torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t) * 1e6
-    events = prof.events()
-    by_name, ranged = {}, {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:  # a range's span is no kernel
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        elif range_family is not None and e.kernels and _in_range(e, range_family):
-            for k in e.kernels:
-                ranged[k.name] = ranged.get(k.name, 0.0) + k.duration
-    if range_family is not None and not ranged:
-        print(f"profile {label}: no kernel was launched inside the {range_family!r} range", flush=True)
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+        launched = {f: n - before[f] for f, n in our_launches().items() if n > before[f]}
+        kernels = [e for e in prof.events()  # a range's span on the device is no kernel
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+        missed = missed_launches(launched, [e.name for e in kernels])
+        if not missed:
+            break
+        print(f"profile {label}: the session missed launches (seen, launched) {json.dumps(missed)}", flush=True)
+    by_name, ranged, each = {}, {}, {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        each.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if range_family is not None:
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA and e.kernels and _in_range(e, range_family):
+                for k in e.kernels:
+                    ranged[k.name] = ranged.get(k.name, 0.0) + k.duration
+        if not ranged:
+            print(f"profile {label}: no kernel was launched inside the {range_family!r} range", flush=True)
     busy = sum(by_name.values())
     if busy <= 0:
         print(f"profile {label}: the profiler saw no device time", flush=True)
         return
-
-    def family(name):
-        n = name.lower()
-        if "flash_fwd_kernel" in n:
-            return "flash_fwd (ours)"
-        if "flash_bwd_dq_kernel" in n:
-            return "flash_bwd_dq (ours)"
-        if "flash_bwd_dkv_kernel" in n:
-            return "flash_bwd_dkv (ours)"
-        if "decode_kernel" in n:
-            return "decode_attention (ours)"
-        if "verify_kernel" in n:
-            return "block_verify_attention (ours)"
-        if "w8_gemm_kernel" in n:
-            return "W8 GEMM w8_gemm: qkv, wo, down (ours)"
-        if "w8_swiglu_kernel" in n:
-            return "W8 gate/up w8_swiglu (ours)"
-        if "head_tile_kernel" in n or "head_reduce_kernel" in n:
-            return "head_argmax (ours)"
-        if any(w in n for w in ("gemm", "nvjet", "sm90_", "cutlass", "cublas", "xmma", "gemv")):
-            return "matmul (cuBLAS)"
-        return "other (elementwise, norms, copies, reductions)"
 
     fam = {}
     for n, us in by_name.items():
@@ -1984,9 +2125,20 @@ def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None):
           f"(idle share {max(0.0, 1 - busy / wall_us):.3f}), {unprofiled_s:.3f} s unprofiled "
           f"(idle share {max(0.0, 1 - busy / 1e6 / unprofiled_s):.3f})", flush=True)
     for f_name, us in sorted(fam.items(), key=lambda kv: -kv[1]):
-        print(f"profile {label} family: {f_name}: {us / 1e3:.1f} ms ({us / busy:.3f})", flush=True)
+        n = f", {launched[f_name]} launches (all seen)" if f_name in launched else ""
+        if f_name in missed:
+            n = f", {launched[f_name]} launches (short: the profiler saw {missed[f_name][0]})"
+        print(f"profile {label} family: {f_name}: {us / 1e3:.1f} ms ({us / busy:.3f}){n}", flush=True)
+    for f_name in sorted(missed.keys() - fam.keys()):
+        print(f"profile {label} family: {f_name}: {launched[f_name]} launches (short: the profiler saw none)",
+              flush=True)
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"profile {label} kernel: {n[:90]}: {us / 1e3:.1f} ms ({us / busy:.3f})", flush=True)
+    # kernel 1 by template instance (D = 64: VGGT; D = 128: the Qwen3 prefill), each launch's device ms
+    for n in sorted(n for n in by_name if family(n) == "flash_fwd (ours)"):
+        d = sorted(each[n], reverse=True)
+        print(f"profile {label} flash_fwd instance {n[n.find('flash_fwd_kernel'):].split('(')[0]}: {len(d)} launches, "
+              f"{sum(d) / 1e3:.1f} ms; each (ms) {[round(x / 1e3, 3) for x in d]}", flush=True)
 
 
 def _in_range(event, name: str) -> bool:
@@ -2056,8 +2208,6 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"device: {kind} | {smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
-    from vggt_qwen3_tpu_torch.inference.batching import max_prompt_len
     from vggt_qwen3_tpu_torch.ops import kernel_build
 
     libs = kernel_build.build(sorted(p.stem for p in kernel_build.CSRC.glob("*.cu")))
@@ -2091,32 +2241,15 @@ def main(argv=None) -> int:
     spilled = {kl.name: ptxas_spills(kl) for kl in libs if kl.name in TILES and ptxas_spills(kl)}
     if spilled:
         raise AssertionError(f"ptxas spills: {spilled}")
-    # main-path shapes: 8 prompts, left-padded, 128 vision tokens spliced in
-    tok = load_tokenizer(None)
-    samples = load_samples(args.seed)
-    lens = [len(tok(f"{s['question']}\n<image>\n")["input_ids"]) for s in samples]
-    pad_to = max_prompt_len(tok, [f"{s['question']}\n<image>\n" for s in samples])
-    S = pad_to + stage.model.num_vis_tokens - 1
-    starts = [pad_to - n for n in lens]
-    txt, vis = stage.model.text, stage.model.vision
-    tpf = vis.patch_start_idx + (stage.data.image_size // vis.patch_size) ** 2  # 1029 at 448²
+    txt = stage.model.text
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-
-    B, V, vd = 8, stage.data.num_views, vis.embed_dim // vis.num_heads  # the QA batch: 8 samples x 8 views
-    flash = {
-        "vggt_frame": check_flash("vggt_frame", B * V, tpf, tpf, vis.num_heads, vis.num_heads, vd,
-                                  causal=False, starts=[0] * (B * V), gen=gen),
-        "vggt_global": check_flash("vggt_global", B, V * tpf, V * tpf, vis.num_heads, vis.num_heads, vd,
-                                   causal=False, starts=[0] * B, gen=gen),
-        "qwen3_prefill": check_flash("qwen3_prefill", B, S, S, txt.num_heads, txt.num_kv_heads, txt.head_dim,
-                                     causal=True, starts=starts, gen=gen),
-    }
+    flash = flash_checks(stage, gen, args.seed)  # kernel 1 at the QA and training shapes
     attention = attention_checks(stage, gen, args.seed, args.max_new_tokens)  # kernels 2 and 3
     decode = {kv: attention[f"decode_{kv}"] for kv in ("bf16", "int8")}
     verify = {kv: attention[f"verify_{kv}"] for kv in ("bf16", "int8")}
     w8 = check_w8(txt, 368, gen)  # the W8 bench shape: 368 rows
     torch.cuda.empty_cache()
-    bwd = backward_checks(stage, gen)  # kernels 8 and 9 and kernel 1's lse
+    bwd = backward_checks(stage, gen)  # kernels 8 and 9 on kernel 1's lse
     phase_done("kernel checks")
     reference_check(args.seed)
     reference_check_w8(args.seed)
@@ -2133,11 +2266,12 @@ def main(argv=None) -> int:
     phase_done("training path")
 
     f, d, d8 = flash["vggt_global"], decode["bf16"], attention["decode_w8"]
-    lse = bwd["vggt_global"]["flash_fwd_lse"]
+    lse = flash["train_global"]
     kernels = [
-        dict(name="flash_fwd", route="cuda", source="vggt_qwen3_tpu_torch/csrc/flash_fwd.cu",
+        dict(name="flash_fwd", route="cuda", source=FLASH_SOURCE,
              replaces=FLASH_REPLACES, launches=runs[None][0], **f, lse_shape=lse["shape"],
-             lse_ms=lse["ms_with_lse"], no_lse_ms=lse["ms_without"], training_launches=train["counts"]["flash_fwd"]),
+             lse_ms=lse["ms"], lse_library_ms=lse["library_ms"], lse_max_abs_err=lse["lse_max_abs_err"],
+             training_launches=train["counts"]["flash_fwd"]),
         dict(name="decode_attention", route="cuda", source=ATTENTION_SOURCE, replaces=DECODE_REPLACES,
              launches=runs[None][1], **d, w8_shape=d8["shape"], w8_launches=w8_counts["decode_attention"],
              w8_ms=d8["ms"], w8_plain_ms=d8["plain_ms"], w8_library_ms=d8["library_ms"], w8_library=d8["library"],

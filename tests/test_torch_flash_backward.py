@@ -331,3 +331,87 @@ def test_flash_bwd_tile_variants_name_defines_the_source_reads(variant):
     assert all(f"#ifndef {k}\n" in src for k in chip_smoke.FLASH_BWD_TILES[variant])
     with pytest.raises(ValueError, match="reads no define"):
         kernel_build.rebuild("flash_bwd", {**chip_smoke.FLASH_BWD_TILES[variant], "NO_SUCH_SIZE": 1})
+
+
+def test_forward_kernel_refuses_views_tma_cannot_address(monkeypatch):
+    """The forward kernel's wrapper takes q, k and v through TMA tensor maps
+    as the backward's does: a view a map cannot address is refused, with a
+    message that says why, before anything is built or launched."""
+    monkeypatch.setattr(pflash, "_fwd_lib", lambda: pytest.fail("the forward was launched"))
+    B, S, NH, D = 2, 8, 2, 64
+    ok = torch.zeros(B, S, NH, D, dtype=torch.bfloat16)
+    bounds = torch.zeros(B, dtype=torch.int32), torch.full((B,), S, dtype=torch.int32)
+    wide = torch.zeros(B, S, NH, D + 8, dtype=torch.bfloat16)
+    bad = {
+        "a TMA tensor map cannot address": torch.zeros(1, S, NH, D, dtype=torch.bfloat16).expand(B, S, NH, D),
+        "16-byte aligned base": wide[..., 4:4 + D],
+        "multiples of 8 elements": torch.zeros(B, S, NH, D + 4, dtype=torch.bfloat16)[..., :D],
+    }
+    for why, x in bad.items():
+        for pos in range(3):
+            ops = [ok, ok, ok]
+            ops[pos] = x
+            with pytest.raises(ValueError, match=why):
+                pflash.flash_fwd_kernel(*ops, *bounds, False, 0.125, True)
+
+
+@pytest.mark.parametrize("pos", [0, 1, 2])
+def test_forward_copies_a_broadcast_input(monkeypatch, pos):
+    """A broadcast (stride 0) q, k or v reaches the forward kernel as a
+    contiguous copy, counted in ``fwd_copies``; the other operands and the
+    strided views the VGGT blocks hand over (``qkv.chunk``) go as they are."""
+    seen = []
+    monkeypatch.setattr(pflash, "_on_card", lambda x: True)
+    monkeypatch.setattr(pflash, "flash_fwd_kernel", lambda *a: seen.append(a) or (None, None))
+    monkeypatch.setattr(pflash, "fwd_copies", dict.fromkeys("qkv", 0))
+    B, S, NH, D = 2, 8, 2, 64
+    qkv = torch.zeros(B, S, 3 * NH * D, dtype=torch.bfloat16)
+    ops = [t.reshape(B, S, NH, D) for t in qkv.chunk(3, dim=-1)]
+    bcast = torch.randn(1, S, NH, D).bfloat16().expand(B, S, NH, D)
+    pflash.flash_attention(*ops)
+    assert all(a is b for a, b in zip(seen[0][:3], ops)) and pflash.fwd_copies == dict.fromkeys("qkv", 0)
+    ops[pos] = bcast
+    pflash.flash_attention(*ops)
+    got = seen[1][pos]
+    assert got.is_contiguous() and torch.equal(got, bcast)
+    assert all(seen[1][i] is ops[i] for i in range(3) if i != pos)
+    assert pflash.fwd_copies == {n: int(i == pos) for i, n in enumerate("qkv")}
+
+
+@pytest.mark.parametrize("variant", sorted(chip_smoke.FLASH_FWD_TILES))
+def test_flash_fwd_tile_variants_name_defines_the_source_reads(variant):
+    """The forward's sweep (``chip_smoke.py --tiles flash_fwd``) builds each
+    variant with nvcc defines the source reads under ``#ifndef``;
+    ``kernel_build.rebuild`` refuses any other."""
+    src = (kernel_build.CSRC / "flash_fwd.cu").read_text()
+    assert all(f"#ifndef {k}\n" in src for k in chip_smoke.FLASH_FWD_TILES[variant])
+    with pytest.raises(ValueError, match="reads no define"):
+        kernel_build.rebuild("flash_fwd", {**chip_smoke.FLASH_FWD_TILES[variant], "NO_SUCH_SIZE": 1})
+
+
+def test_build_target_hashes_the_headers_a_source_includes(monkeypatch, tmp_path):
+    """A library's path hashes its source, the ``csrc/`` headers it includes
+    (``#include "..."``, through other headers too) and the flags: an edit to
+    the shared Hopper header gives both flash sources a new build, while an
+    edit to a header they do not include, or to another source, gives none."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in kernel_build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernel_build, "CSRC", csrc)
+    names = ("flash_fwd", "flash_bwd", "decode_matmul")
+    before = {n: kernel_build._target(n) for n in names}
+    assert {p.name for p in kernel_build._sources(csrc / "flash_fwd.cu")} == {"flash_fwd.cu", "hopper.cuh"}
+    (csrc / "other.cuh").write_text("// not included\n")
+    (csrc / "decode_attention.cu").write_text("// another source\n")
+    assert {n: kernel_build._target(n) for n in names} == before
+    (csrc / "deeper.cuh").write_text("#define DEEPER 1\n")
+    with (csrc / "hopper.cuh").open("a") as f:
+        f.write('#include "deeper.cuh"\n')
+    after = {n: kernel_build._target(n) for n in names}
+    assert after["flash_fwd"] != before["flash_fwd"] and after["flash_bwd"] != before["flash_bwd"]
+    assert after["decode_matmul"] == before["decode_matmul"]
+    (csrc / "deeper.cuh").write_text("#define DEEPER 2\n")
+    assert kernel_build._target("flash_fwd") != after["flash_fwd"]
+    assert kernel_build._target("flash_fwd", {"FWD_STAGES_64": 2}) != kernel_build._target("flash_fwd")

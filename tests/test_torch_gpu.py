@@ -495,6 +495,101 @@ def test_flash_backward_kernels_repeat_bit_for_bit(causal):
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
+# the tile edges of kernel 1 (128-row query tiles at D = 128 and D = 64, 192
+# with three consumer warpgroups; 64- and 128-key stages)
+FWD_EDGE_ST = [(1, 1), (5, 5), (127, 127), (128, 128), (129, 129), (191, 191), (192, 192), (193, 193),
+               (1029, 1029), (5, 129), (129, 5), (127, 1029), (1029, 128), (191, 193), (193, 64), (192, 1029)]
+
+
+def _held_fwd(q, k, v, start, end, causal):
+    """Kernel 1's out and lse against the plain version's: out by
+    ``utils.agreement``, lse within 1e-4 on rows that see a key; rows that see
+    none exactly 0 with lse exactly -1e30. Returns (out, lse)."""
+    kw = dict(causal=causal, kv_start=start, kv_end=end)
+    n0 = pflash.launches
+    out, lse = pflash.flash_attention_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert pflash.launches == n0 + 1
+    ref, ref_lse = pflash.flash_attention_plain_with_lse(q, k, v, **kw)
+    assert out.shape == ref.shape and lse.shape == ref_lse.shape and lse.dtype == torch.float32
+    assert agreement(out, ref)["ok"], agreement(out, ref)
+    live = ref_lse > -1e29  # [B, NH, S]
+    torch.testing.assert_close(lse[live], ref_lse[live], rtol=0, atol=1e-4)
+    assert (lse[~live] == -1e30).all()
+    assert not out.transpose(1, 2)[~live].any(), "a query with no valid key must get exactly 0"
+    return out, lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,T", FWD_EDGE_ST)
+def test_flash_forward_at_tile_edges(S, T, D, G, causal):
+    """Kernel 1 against its plain version where its tiles are ragged (S, T =
+    1, 5, 127-129, 191-193, 1029, S != T too), GQA groups 1 and 4, a frontier
+    with 1e4 in every K/V slot outside it, and a batch row with no key."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(S * 7919 + T * 31 + D + G + causal + 1)
+    q, k, v, _, start, end, _ = _edge_inputs(g, S, T, 2 * G, 2, D)
+    out, lse = _held_fwd(q, k, v, start, end, causal)
+    assert (lse[2] == -1e30).all() and not out[2].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_forward_reads_strided_qkv_views(D, causal):
+    """q/k/v as views into one packed qkv (``qkv.chunk``, as the VGGT block
+    hands them over) at the frame length 1029: read through their strides,
+    with no copy."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(16 + D + causal)
+    B, T, NH = 2, 1029, 4
+    qkv = torch.randn(B, T, 3 * NH * D, device="cuda", generator=g).bfloat16()
+    q, k, v = (t.reshape(B, T, NH, D) for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous() and not v.is_contiguous()
+    copies = dict(pflash.fwd_copies)
+    start = torch.tensor([0, 300], dtype=torch.int32, device="cuda")
+    end = torch.tensor([T, 900], dtype=torch.int32, device="cuda")
+    _held_fwd(q, k, v, start, end, causal)
+    assert pflash.fwd_copies == copies
+
+
+@pytest.mark.gpu
+def test_flash_forward_copies_a_broadcast_view_the_kernel_refuses():
+    """A broadcast (stride 0) k: the wrapper copies it and the result equals
+    the contiguous inputs' bit for bit; the kernel's own wrapper refuses it."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(17)
+    B, S, T, NH, D = 3, 200, 150, 4, 64
+    q = torch.randn(B, S, NH, D, device="cuda", generator=g).bfloat16()
+    k = torch.randn(1, T, NH, D, device="cuda", generator=g).bfloat16().expand(B, T, NH, D)
+    v = torch.randn(B, T, NH, D, device="cuda", generator=g).bfloat16()
+    n0 = pflash.fwd_copies["k"]
+    got = pflash.flash_attention(q, k, v)
+    assert pflash.fwd_copies["k"] == n0 + 1
+    assert torch.equal(got, pflash.flash_attention(q, k.contiguous(), v))
+    bounds = torch.zeros(B, dtype=torch.int32, device="cuda"), torch.full((B,), T, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="a TMA tensor map cannot address k"):
+        pflash.flash_fwd_kernel(q, k, v, *bounds, False, D ** -0.5, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,G,causal", [(64, 1, False), (128, 4, True)])
+def test_flash_forward_repeats_bit_for_bit(D, G, causal):
+    """No atomics: two launches on the same inputs give the same output and
+    lse bit for bit."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(18 + D)
+    q, k, v, _, start, end, _ = _edge_inputs(g, 1029, 1029, 2 * G, 2, D)
+    kw = dict(causal=causal, kv_start=start, kv_end=end)
+    a = pflash.flash_attention_with_lse(q, k, v, **kw)
+    b = pflash.flash_attention_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 @pytest.mark.gpu
 def test_wrappers_raise_on_shapes_the_kernels_do_not_take():
     _need_card()

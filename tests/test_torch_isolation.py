@@ -123,3 +123,33 @@ def test_chip_smoke_build_takes_tiles_and_a_build_of_its_table(argv):
     with pytest.raises(SystemExit) as stop:
         chip_smoke.main(argv)
     assert stop.value.code == 2
+
+
+def test_chip_smoke_profile_families_cover_every_kernel_of_ours():
+    """Every ``__global__`` kernel of the port's CUDA sources falls in one of
+    the profile families that ``our_launches`` counts, so a profile that lost
+    one of their launches cannot pass unseen."""
+    import re
+
+    import chip_smoke
+
+    counted = set(chip_smoke.our_launches())
+    names = {m for f in (REPO / "vggt_qwen3_tpu_torch" / "csrc").glob("*.cu")
+             for m in re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\) )?(\w+)\(", f.read_text())}
+    assert len(names) == 9
+    assert {chip_smoke.family(f"void {n}<64>(Args)") for n in names} == counted
+
+
+def test_chip_smoke_profile_finds_a_session_that_missed_launches():
+    """``missed_launches`` names each family of ours whose kernels the profiler
+    saw fewer times than the wrappers launched them, with both counts; other
+    kernels and families not launched do not count."""
+    import chip_smoke
+
+    launched = {"flash_fwd (ours)": 3, "head_argmax (ours)": 2}
+    seen = ["void flash_fwd_kernel<64>(CUtensorMap)"] * 3 + ["head_tile_kernel", "head_reduce_kernel",
+                                                              "elementwise_kernel", "nvjet_tst_128x64"]
+    assert chip_smoke.missed_launches(launched, seen) == {}
+    assert chip_smoke.missed_launches(launched, seen[1:]) == {"flash_fwd (ours)": (2, 3)}
+    assert chip_smoke.missed_launches({**launched, "decode_attention (ours)": 1}, seen[:-3]) == {
+        "head_argmax (ours)": (1, 2), "decode_attention (ours)": (0, 1)}

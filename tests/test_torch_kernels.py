@@ -48,6 +48,12 @@ FLASH_CASES = {
     "noncausal_d64": dict(B=2, S=37, T=53, NH=4, NKV=4, D=64, causal=False, starts=None),
     # Qwen3-prefill-like: causal, left-padded, GQA, D=128
     "causal_leftpad_gqa_d128": dict(B=2, S=40, T=40, NH=4, NKV=2, D=128, causal=True, starts=[5, 0]),
+    # the CUDA kernel's tile edges: past 128 (and 192) query rows and keys,
+    # frontiers that end before T, a GQA group of 2 (JAX in 64-blocks)
+    "edge_noncausal_frontier_d64": dict(B=2, S=193, T=129, NH=4, NKV=2, D=64, causal=False, starts=[0, 40],
+                                        ends=[129, 100], block=64),
+    "edge_causal_frontier_d128": dict(B=2, S=129, T=193, NH=4, NKV=2, D=128, causal=True, starts=[3, 70],
+                                      ends=[150, 193], block=64),
 }
 
 
@@ -61,15 +67,17 @@ def test_flash_plain_matches_pallas(case, dtype):
     kj, kt = _pair(rng.standard_normal((B, T, NKV, D)), dtype)
     vj, vt = _pair(rng.standard_normal((B, T, NKV, D)), dtype)
     kw_j, kw_t = {}, {}
-    if c["starts"] is not None:
-        starts = np.asarray(c["starts"], np.int32)
-        kw_j = dict(kv_start=jnp.asarray(starts))
-        kw_t = dict(kv_start=torch.from_numpy(starts))
-    ref = _f32(jax_flash(qj, kj, vj, causal=c["causal"], block_q=16, block_kv=16, interpret=True, **kw_j))
+    for key, name in (("starts", "kv_start"), ("ends", "kv_end")):
+        if c.get(key) is not None:
+            bounds = np.asarray(c[key], np.int32)
+            kw_j[name] = jnp.asarray(bounds)
+            kw_t[name] = torch.from_numpy(bounds)
+    blk = c.get("block", 16)
+    ref = _f32(jax_flash(qj, kj, vj, causal=c["causal"], block_q=blk, block_kv=blk, interpret=True, **kw_j))
     got = _f32(pflash.flash_attention(qt, kt, vt, causal=c["causal"], **kw_t))
     assert got.shape == (B, S, NH, D)
-    for b in range(B):  # valid rows only: rows left of the start see no key
-        s0 = 0 if c["starts"] is None else c["starts"][b]
+    for b in range(B):  # valid rows only: with causal, rows left of the start see no key
+        s0 = 0 if c["starts"] is None or not c["causal"] else c["starts"][b]
         np.testing.assert_allclose(got[b, s0:], ref[b, s0:], atol=TOL[dtype], rtol=TOL[dtype])
         assert not got[b, :s0].any(), "dead rows must be exactly 0"
 

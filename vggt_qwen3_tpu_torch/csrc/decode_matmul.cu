@@ -66,8 +66,8 @@
 // the cut of a launch. A launch encodes its two to four tensor maps on the
 // host; the kernel's shared-memory attribute is set once a device.
 //
-// w8_swiglu and head_argmax (mma.sync m16n8k16 bf16 -> f32, the fragment code
-// of flash_fwd.cu, with ldmatrix; synchronous staging, later work):
+// w8_swiglu and head_argmax (mma.sync m16n8k16 bf16 -> f32 with register
+// fragments loaded by ldmatrix; synchronous staging, later work):
 // - w8_swiglu reads each A tile (64 rows) once for both gate and up (64
 //   columns each), dequantizing W with its scales on the way into shared
 //   memory, and writes the activation a [M, F] bf16; down is then a w8_gemm.

@@ -53,6 +53,10 @@ NEG_INF = -1e30
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+# Operands the forward copied because a TMA tensor map cannot address their
+# view (:func:`_tma_addressable`), by name: the main paths hand over views
+# that need none.
+fwd_copies = {"q": 0, "k": 0, "v": 0}
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -185,7 +189,7 @@ def _check_operand(name: str, x: torch.Tensor, device) -> None:
 
 
 def _tma_addressable(x: torch.Tensor) -> bool:
-    """Whether the backward kernels' TMA tensor maps can address the
+    """Whether the kernels' TMA tensor maps can address the
     [B, S, H, D] view x: a contiguous head dim, a 16-byte aligned base, the
     other strides multiples of 16 bytes below 2^40 bytes, and none 0
     (broadcast) on a dimension of more than one element."""
@@ -198,7 +202,7 @@ def _check_tma(name: str, x: torch.Tensor, device) -> None:
     _check_operand(name, x, device)
     if not _tma_addressable(x):
         raise ValueError(
-            f"flash_attention backward: a TMA tensor map cannot address {name} "
+            f"flash_attention: a TMA tensor map cannot address {name} "
             f"(shape {tuple(x.shape)}, strides {x.stride()}): it needs positive strides below 2^40 bytes"
         )
 
@@ -244,10 +248,13 @@ def _stat_buffer(B: int, NH: int, S: int, fill: float, device) -> torch.Tensor:
 
 def flash_fwd_kernel(q, k, v, start, end, causal: bool, scale: float, with_lse: bool):
     """Launch ``csrc/flash_fwd.cu``: (out [B, S, NH, D] bf16, lse [B, NH, S]
-    f32 or None). start/end are [B] int32 on the card."""
+    f32 or None). start/end are [B] int32 on the card; q, k and v are read
+    through TMA tensor maps over their strides (:func:`_check_tma`)."""
     global launches
     B, S, NH, D = q.shape
     T, NKV = k.shape[1], k.shape[2]
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_tma(name, x, q.device)
     out = torch.empty((B, S, NH, D), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((B, NH, S), dtype=torch.float32, device=q.device) if with_lse else None
     rc = _fwd_lib()(
@@ -311,8 +318,19 @@ def _forward(q, k, v, kv_start, kv_end, causal, scale, with_lse):
         return out, (lse if with_lse else None)
     _check_kernel_shapes(q, k, v)
     B, T = q.shape[0], k.shape[1]
+    # broadcast views (expanded inputs) are copied for the TMA maps
+    q, k, v = (_tma_view(n, x) for n, x in (("q", q), ("k", k), ("v", v)))
     return flash_fwd_kernel(q, k, v, _bounds(kv_start, B, 0, q.device), _bounds(kv_end, B, T, q.device),
                             causal, scale, with_lse)
+
+
+def _tma_view(name: str, x: torch.Tensor) -> torch.Tensor:
+    """x, or a contiguous copy of it where a TMA map cannot address the view
+    (counted in :data:`fwd_copies`)."""
+    if _tma_addressable(x):
+        return x
+    fwd_copies[name] += 1
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_backward(q, k, v, kv_start, kv_end, out, lse, d_out, g_lse=None, *,

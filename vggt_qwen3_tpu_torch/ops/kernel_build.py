@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with ``nvcc`` at first use and load them.
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and compiles on
-its own into ``build/lib<name>-<hash>.so`` (the hash is of the source and the
-flags, so an edited source rebuilds), loaded with ``ctypes``. Nothing here runs at import:
+its own into ``build/lib<name>-<hash>.so`` (the hash is of the source, of the
+``csrc/*.cuh`` headers it includes and of the flags, so an edited source or
+header rebuilds), loaded with ``ctypes``. Nothing here runs at import:
 the CPU tests import every module, and a build is reached only through a
 wrapper handed a CUDA tensor.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -52,10 +54,30 @@ def _flags(defines: Optional[Dict[str, int]]) -> List[str]:
     return NVCC_FLAGS + [f"-D{k}={v}" for k, v in (defines or {}).items()]
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: Optional[List[Path]] = None) -> List[Path]:
+    """``path`` and every header it includes from ``csrc/`` (``#include
+    "..."``, followed through the headers), each once, in include order."""
+    seen = [] if seen is None else seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        dep = (path.parent / inc.decode()).resolve()
+        if dep.parent == CSRC.resolve() and dep.exists() and dep not in seen:
+            _sources(dep, seen)
+    return seen
+
+
 def _target(name: str, defines: Optional[Dict[str, int]] = None) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(defines)).encode()).hexdigest()[:16]
-    return BUILD / f"lib{name}-{digest}.so"
+    """The library's path: its name and a hash of the source, of the
+    ``csrc/`` headers it includes and of the flags, so an edit to any of them
+    rebuilds."""
+    digest = hashlib.sha256()
+    for src in _sources(CSRC / f"{name}.cu"):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest.update(" ".join(_flags(defines)).encode())
+    return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str], defines: Optional[Dict[str, int]] = None) -> List[KernelLibrary]:
