@@ -217,23 +217,38 @@ def test_layer_kernel_plain_matches_pallas(stacked, kernel, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_head_argmax_plain_matches_pallas(dtype):
-    rng = np.random.default_rng(9)
-    V, Hh = 1280, 256
-    wf = rng.standard_normal((V, Hh)).astype(np.float32) * 0.05
-    s = np.maximum(np.abs(wf).max(-1, keepdims=True), 1e-8) / 127.0
-    w8 = np.clip(np.round(wf / s), -127, 127).astype(np.int8)
-    scale = s.astype(ml_dtypes.bfloat16)
-    xj, xt = _x(10, (B, Hh), dtype)
-    tok_j, m_j = jdm.fused_head_argmax(xj, {"w8": jnp.asarray(w8), "scale": jnp.asarray(scale)}, interpret=True)
-    head = {"w8": array_to_torch(w8), "scale": array_to_torch(scale)}
-    tok_p, m_p = pdm.fused_head_argmax(xt, head)
-    assert tok_p.dtype == torch.int32 and m_p.dtype == torch.float32 and tuple(tok_p.shape) == (B,)
-    logits = pdm.head_logits(xt, head).numpy()
-    top2 = np.sort(logits, -1)
-    decisive = (top2[:, -1] - top2[:, -2]) > 1e-5
-    assert decisive.sum() >= B - 2
-    np.testing.assert_array_equal(tok_p.numpy()[decisive], np.asarray(tok_j)[decisive])
-    np.testing.assert_allclose(m_p.numpy()[decisive], np.asarray(m_j)[decisive], rtol=1e-6)
+    """At V = 1280, and at V = 384 (the CUDA head's 256-row vocab tiles: a
+    whole one and a half one) with vocab rows 200 and 300 equal and holding
+    the max for the first two x rows: a tie across the half tile's edge,
+    which both sides give to row 200."""
+    for V in (1280, 384):
+        rng = np.random.default_rng(9)
+        Hh = 256
+        wf = rng.standard_normal((V, Hh)).astype(np.float32) * 0.05
+        s = np.maximum(np.abs(wf).max(-1, keepdims=True), 1e-8) / 127.0
+        w8 = np.clip(np.round(wf / s), -127, 127).astype(np.int8)
+        x = (rng.standard_normal((B, Hh)) * 0.3).astype(np.float32)
+        tied = V == 384
+        if tied:
+            w8[300], s[300] = w8[200], s[200]
+            x[:2] = w8[200] / 127.0
+        scale = s.astype(ml_dtypes.bfloat16)
+        xj, xt = jnp.asarray(x.astype(NP_DT[dtype])), array_to_torch(x.astype(NP_DT[dtype]))
+        tok_j, m_j = jdm.fused_head_argmax(xj, {"w8": jnp.asarray(w8), "scale": jnp.asarray(scale)},
+                                           interpret=True)
+        head = {"w8": array_to_torch(w8), "scale": array_to_torch(scale)}
+        tok_p, m_p = pdm.fused_head_argmax(xt, head)
+        assert tok_p.dtype == torch.int32 and m_p.dtype == torch.float32 and tuple(tok_p.shape) == (B,)
+        logits = pdm.head_logits(xt, head).numpy()
+        top2 = np.sort(logits, -1)
+        decisive = (top2[:, -1] - top2[:, -2]) > 1e-5
+        pair = (logits[:, 200] == logits[:, 300]) & (logits[:, 200] == top2[:, -1]) if tied else np.zeros(B, bool)
+        assert decisive.sum() >= B - 2 - pair.sum()
+        np.testing.assert_array_equal(tok_p.numpy()[decisive], np.asarray(tok_j)[decisive])
+        np.testing.assert_allclose(m_p.numpy()[decisive], np.asarray(m_j)[decisive], rtol=1e-6)
+        if tied:  # the rows that 200 and 300 win together, the first two among them
+            assert pair[:2].all()
+            assert (tok_p.numpy()[pair] == 200).all() and (np.asarray(tok_j)[pair] == 200).all()
 
 
 def test_head_ties_go_to_the_lowest_index():
@@ -616,6 +631,129 @@ def test_gemm_wrappers_raise_before_a_launch(monkeypatch):
         pdm.fused_linear_w8(torch.zeros(2, K, dtype=bf), *_qwen3_like_w8(1, K, (n,)), 0)
     assert [c[1:3] + (c[6],) for c in calls] == [(2, 2560, 4096), (2, 2560, 1024), (2, 4096, 2560),
                                                   (2, 9728, 2560)]
+
+
+def _stub_w8_launches(monkeypatch):
+    """The three entry points of ``csrc/decode_matmul.cu`` replaced by
+    recorders of their arguments (pointers as ints), by name, that return 0;
+    CPU tensors take the kernels' path."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def w8_gemm(*args):
+            calls.append(("w8_gemm", args))
+            return 0
+
+        @staticmethod
+        def w8_swiglu(*args):
+            calls.append(("w8_swiglu", args))
+            return 0
+
+        @staticmethod
+        def head_argmax(*args):
+            calls.append(("head_argmax", args))
+            return 0
+
+    monkeypatch.setattr(pdm, "_lib", lambda: Lib)
+    monkeypatch.setattr(pdm, "_use_kernel", lambda name, x: True)
+    monkeypatch.setattr(pdm, "_stream", lambda x: 0)
+    return calls
+
+
+@pytest.mark.parametrize("M", [1, 8, 368])
+def test_mlp_launches_gate_up_then_down_with_each_layers_pointers(monkeypatch, M):
+    """fused_mlp_w8 at layer li (first and last) is one w8_swiglu launch over
+    gate and up at li by pointer offset, with (M, K, F), writing the
+    activation [M, F] that the one w8_gemm launch over down at li then reads;
+    one count a call."""
+    calls = _stub_w8_launches(monkeypatch)
+    K, Fd, L_ = 256, 384, 3
+    gate, up = _qwen3_like_w8(L_, K, (Fd, Fd))
+    (down,) = _qwen3_like_w8(L_, Fd, (K,))
+    x = torch.zeros(M, K, dtype=torch.bfloat16)
+    for li in (0, L_ - 1):
+        calls.clear()
+        n0 = pdm.launches["fused_mlp_w8"]
+        out = pdm.fused_mlp_w8(x, gate, up, down, li)
+        assert pdm.launches["fused_mlp_w8"] == n0 + 1 and out.shape == (M, K)
+        assert [c[0] for c in calls] == ["w8_swiglu", "w8_gemm"]
+        sw, gm = calls[0][1], calls[1][1]
+        assert sw[:3] == (x.data_ptr(), M, K) and sw[8:] == (Fd, 0)
+        assert sw[3:7] == (gate["w8"].data_ptr() + li * K * Fd, gate["scale"].data_ptr() + 2 * li * Fd,
+                           up["w8"].data_ptr() + li * K * Fd, up["scale"].data_ptr() + 2 * li * Fd)
+        assert gm[:3] == (sw[7], M, Fd)  # down reads the activation gate/up wrote
+        assert gm[3:7] == (down["w8"].data_ptr() + li * Fd * K, down["scale"].data_ptr() + 2 * li * K,
+                           out.data_ptr(), K) and gm[-2] == 1
+
+
+@pytest.mark.parametrize("V", [128, 384, 151936])
+@pytest.mark.parametrize("M", [1, 368])
+def test_head_launch_passes_shapes_and_its_partials_scratch(monkeypatch, M, V):
+    """fused_head_argmax is one head_argmax launch with (M, K, V), the table
+    and scales, partials scratch of [M, ceil(V / 256)] (one (max, index) a
+    256-row vocab tile) and the [M] token and max outputs it returns."""
+    calls = _stub_w8_launches(monkeypatch)
+    made = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    K = 128
+    head = {"w8": torch.zeros(V, K, dtype=torch.int8), "scale": torch.ones(V, 1, dtype=torch.bfloat16)}
+    x = torch.zeros(M, K, dtype=torch.bfloat16)
+    n0 = pdm.launches["fused_head_argmax"]
+    tok, mx = pdm.fused_head_argmax(x, head)
+    assert pdm.launches["fused_head_argmax"] == n0 + 1
+    assert len(calls) == 1 and calls[0][0] == "head_argmax"
+    args = calls[0][1]
+    assert args[:6] == (x.data_ptr(), M, K, head["w8"].data_ptr(), head["scale"].data_ptr(), V)
+    pval, pidx = (next(t for t in made if t.data_ptr() == a) for a in args[6:8])
+    tiles = -(-V // 256)
+    assert (tuple(pval.shape), pval.dtype, tuple(pidx.shape), pidx.dtype) == \
+        ((M, tiles), torch.float32, (M, tiles), torch.int32)
+    assert args[8:] == (tok.data_ptr(), mx.data_ptr(), 0)
+    assert (tuple(tok.shape), tok.dtype, tuple(mx.shape), mx.dtype) == ((M,), torch.int32, (M,), torch.float32)
+
+
+def test_mlp_and_head_wrappers_raise_before_a_launch(monkeypatch):
+    """The shapes w8_swiglu and head_argmax do not take raise in the
+    wrappers, naming the rule, and launch nothing: F, V or the down
+    projection's N not a multiple of 128, K not a multiple of 64; Qwen3-4B's
+    widths pass."""
+    calls = _stub_w8_launches(monkeypatch)
+    bf = torch.bfloat16
+
+    def mlp(K, Fd, Ku=None):
+        gate, up = _qwen3_like_w8(1, K, (Fd, Fd))
+        (down,) = _qwen3_like_w8(1, Fd, (K,))
+        return pdm.fused_mlp_w8(torch.zeros(4, Ku or K, dtype=bf), gate, up, down, 0)
+
+    def head(K, V):
+        return pdm.fused_head_argmax(torch.zeros(4, K, dtype=bf), {"w8": torch.zeros(V, K, dtype=torch.int8),
+                                                                   "scale": torch.ones(V, 1, dtype=bf)})
+
+    with pytest.raises(ValueError, match="N a multiple of 128"):
+        mlp(256, 192)
+    with pytest.raises(ValueError, match="K a multiple of 64"):
+        mlp(96, 128)
+    with pytest.raises(ValueError, match=r"N a multiple of 128 \(the down projection's\)"):
+        mlp(64, 128)
+    with pytest.raises(ValueError, match="gate/up/down shapes"):
+        mlp(256, 128, Ku=128)
+    with pytest.raises(ValueError, match="V a multiple of 128"):
+        head(128, 200)
+    with pytest.raises(ValueError, match="K a multiple of 64"):
+        head(96, 128)
+    assert calls == []
+    mlp(2560, 9728)
+    head(2560, 151936)
+    assert [(c[0], c[1][1:3]) for c in calls] == [("w8_swiglu", (4, 2560)), ("w8_gemm", (4, 9728)),
+                                                   ("head_argmax", (4, 2560))]
 
 
 @pytest.mark.parametrize("variant", sorted(chip_smoke.TILES["decode_matmul"][0]))

@@ -392,8 +392,10 @@ def test_flash_fwd_tile_variants_name_defines_the_source_reads(variant):
 def test_build_target_hashes_the_headers_a_source_includes(monkeypatch, tmp_path):
     """A library's path hashes its source, the ``csrc/`` headers it includes
     (``#include "..."``, through other headers too) and the flags: an edit to
-    the shared Hopper header gives both flash sources a new build, while an
-    edit to a header they do not include, or to another source, gives none."""
+    the shared Hopper header gives the three sources that include it (both
+    flash sources and the W8 GEMMs) a new build, while an edit to a header
+    they do not include, or to another source, gives none, and a source that
+    includes no header keeps its build."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for f in kernel_build.CSRC.iterdir():
@@ -402,16 +404,18 @@ def test_build_target_hashes_the_headers_a_source_includes(monkeypatch, tmp_path
     monkeypatch.setattr(kernel_build, "CSRC", csrc)
     names = ("flash_fwd", "flash_bwd", "decode_matmul")
     before = {n: kernel_build._target(n) for n in names}
-    assert {p.name for p in kernel_build._sources(csrc / "flash_fwd.cu")} == {"flash_fwd.cu", "hopper.cuh"}
+    for n in names:
+        assert {p.name for p in kernel_build._sources(csrc / f"{n}.cu")} == {f"{n}.cu", "hopper.cuh"}
     (csrc / "other.cuh").write_text("// not included\n")
     (csrc / "decode_attention.cu").write_text("// another source\n")
     assert {n: kernel_build._target(n) for n in names} == before
+    alone = kernel_build._target("decode_attention")
     (csrc / "deeper.cuh").write_text("#define DEEPER 1\n")
     with (csrc / "hopper.cuh").open("a") as f:
         f.write('#include "deeper.cuh"\n')
     after = {n: kernel_build._target(n) for n in names}
-    assert after["flash_fwd"] != before["flash_fwd"] and after["flash_bwd"] != before["flash_bwd"]
-    assert after["decode_matmul"] == before["decode_matmul"]
+    assert all(after[n] != before[n] for n in names)
+    assert kernel_build._target("decode_attention") == alone
     (csrc / "deeper.cuh").write_text("#define DEEPER 2\n")
     assert kernel_build._target("flash_fwd") != after["flash_fwd"]
     assert kernel_build._target("flash_fwd", {"FWD_STAGES_64": 2}) != kernel_build._target("flash_fwd")

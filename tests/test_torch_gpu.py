@@ -792,6 +792,34 @@ def test_head_argmax_kernel_matches_plain(M):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("V", [128, 384, 151936])
+@pytest.mark.parametrize("M", [1, 8, 79, 80, 81, 128, 129, 368])
+def test_head_argmax_rows_and_vocab_edges(M, V):
+    """The head at the edges of its row groups (widths 8-128, one to three
+    groups) and of its 256-row vocab tiles: one half tile (V = 128), a whole
+    and a half one (384), 593 whole and a half one (Qwen3's 151936); each
+    launch counts one, and a second launch on the same inputs gives the same
+    bits."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    H = 2560
+    head = _head(g, V, H)
+    x = torch.randn(M, H, device="cuda", generator=g).bfloat16()
+    n0 = pdm.launches["fused_head_argmax"]
+    tok, mx = pdm.fused_head_argmax(x, head)
+    again = pdm.fused_head_argmax(x, head)
+    torch.cuda.synchronize()
+    assert pdm.launches["fused_head_argmax"] == n0 + 2
+    assert torch.equal(tok, again[0]) and torch.equal(mx, again[1])
+    logits = pdm.head_logits(x, head)
+    ref_tok, ref_mx = pdm.fused_head_argmax_plain(x, head)
+    ok = decisive_rows(logits)
+    assert ok.sum() >= M - max(1, M // 100), (int(ok.sum()), M)
+    assert torch.equal(tok[ok], ref_tok[ok])
+    torch.testing.assert_close(mx[ok], ref_mx[ok], rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
 def test_head_argmax_ties_go_to_the_lowest_index():
     """Vocab rows 300, 301 (one tile), 1000 and 7000 (other tiles) are equal
     and hold the max: the token is 300."""
@@ -805,6 +833,120 @@ def test_head_argmax_ties_go_to_the_lowest_index():
     x = (head["w8"][7000].float() / 127).bfloat16()[None].repeat(5, 1).contiguous()
     tok, _ = pdm.fused_head_argmax(x, head)
     assert tok.tolist() == [300] * 5, tok.tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,rows", [
+    (384, (130, 200)),                # one warpgroup's two tiles
+    (384, (200, 300, 383)),           # a whole tile and the half tile after it
+    (384, (300, 383)),                # inside the half tile
+    (151936, (151935, 151809, 40000)),  # the half tile and a tile far before it
+    (151936, (151935, 151809)),       # inside the last (half) tile
+    (151936, (255, 256)),             # across two tiles' edge
+])
+def test_head_argmax_ties_across_tiles_and_the_half_tile(V, rows):
+    """Equal rows holding the max, inside a tile, across tiles and in the
+    half tile at the end of the vocab: the token is the lowest of them, at
+    one row and at 368 (three row groups)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(14)
+    H = 2560
+    head = _head(g, V, H)
+    for r in rows:
+        head["w8"][r] = head["w8"][rows[0]]
+        head["scale"][r] = 0.003  # above every other row's
+    x = (head["w8"][rows[0]].float() / 127).bfloat16()[None]
+    for M in (1, 368):
+        tok, mx = pdm.fused_head_argmax(x.repeat(M, 1).contiguous(), head)
+        assert tok.tolist() == [min(rows)] * M, (M, tok.unique().tolist())
+        torch.testing.assert_close(mx, pdm.head_logits(x, head)[0, min(rows)].repeat(M), rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_head_argmax_takes_plus_and_minus_zero_as_equal():
+    """-0.0 and +0.0 are one value, as in torch.argmax. Every scale is
+    negative but row 301's, every int8 positive but rows 250 and 301's
+    (zero). A zero x row has every logit -0.0 but row 301's +0.0: the token
+    is 0. A positive x row has every logit negative but rows 250 (-0.0) and
+    301 (+0.0): the token is 250, in the first of two tiles."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(15)
+    V, H = 384, 256
+    head = {"w8": torch.randint(1, 128, (V, H), device="cuda", generator=g, dtype=torch.int8),
+            "scale": torch.full((V, 1), -0.002, device="cuda").bfloat16()}
+    head["w8"][[250, 301]] = 0
+    head["scale"][301] = 0.002
+    x = torch.zeros(3, H, device="cuda").bfloat16()
+    x[1:] = 0.5
+    tok, mx = pdm.fused_head_argmax(x, head)
+    ref_tok, _ = pdm.fused_head_argmax_plain(x, head)
+    assert tok.tolist() == ref_tok.tolist() == [0, 250, 250], (tok.tolist(), ref_tok.tolist())
+    assert mx.tolist() == [0.0, 0.0, 0.0] and bool(torch.signbit(mx).all())  # rows 0's and 250's -0.0
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How many bf16 steps apart a and b are (+0.0 and -0.0 one value)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _swiglu_inputs(g, M, K, F, L=2):
+    """x [M, K] and stacked gate/up [L, K, F] (g and u of the order of one)."""
+    x = (torch.randn(M, K, device="cuda", generator=g) * (2.0 / K ** 0.5)).bfloat16()
+    return x, _w8(g, L, K, F), _w8(g, L, K, F)
+
+
+def _activation(x, gate, up, li):
+    """The gate/up launch alone: fused_mlp_w8's activation a [M, F], the
+    down launch's input."""
+    return pdm._swiglu("w8_swiglu", x, gate, up, li)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [64, 128, 2560, 4096])
+@pytest.mark.parametrize("M", [1, 8, 63, 64, 80, 81, 368])
+def test_w8_swiglu_equals_silu_mul_of_two_w8_gemm_launches(M, K):
+    """The gate/up launch takes w8_gemm's cut of (M, K) (one K part or
+    several, row widths 8-128), so its g and u are the bits of
+    fused_linear_w8 over gate and over up: its activation equals
+    bf16(silu(g)) * u of those two launches within one bf16 step (the
+    exponential's last bit), and agrees with the plain version. F = 384:
+    three 128-channel gate/up blocks (w8_gemm over either weight: a whole
+    256-channel tile and a half one); the last layer of two, by pointer
+    offset."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(16)
+    F = 384
+    x, gate, up = _swiglu_inputs(g, M, K, F)
+    a = _activation(x, gate, up, 1)
+    gv, uv = pdm.fused_linear_w8(x, gate, 1), pdm.fused_linear_w8(x, up, 1)
+    ref = torch.nn.functional.silu(gv) * uv
+    assert a.shape == (M, F) and a.dtype == torch.bfloat16
+    assert int(_ulps(a, ref).max()) <= 1, int(_ulps(a, ref).max())
+    plain = torch.nn.functional.silu(pdm.fused_linear_w8_plain(x, gate, 1)) * pdm.fused_linear_w8_plain(x, up, 1)
+    assert agreement(a, plain)["ok"], agreement(a, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 368])
+def test_w8_swiglu_reads_each_layer_and_repeats_bit_for_bit(M):
+    """The first and the last layer of a stacked weight at Qwen3-4B's widths
+    (K 2560, F 9728): each launch reads its own layer's gate, up and scales,
+    and two launches on the same inputs give the same bits."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(17)
+    L = 3
+    x, gate, up = _swiglu_inputs(g, M, 2560, 9728, L=L)
+    outs = {}
+    for li in (0, L - 1):
+        outs[li] = _activation(x, gate, up, li)
+        assert torch.equal(outs[li], _activation(x, gate, up, li))
+        plain = torch.nn.functional.silu(pdm.fused_linear_w8_plain(x, gate, li)) * \
+            pdm.fused_linear_w8_plain(x, up, li)
+        assert agreement(outs[li], plain)["ok"], (li, agreement(outs[li], plain))
+    assert not torch.equal(outs[0], outs[L - 1])
 
 
 @pytest.mark.gpu
@@ -825,3 +967,5 @@ def test_w8_wrappers_raise_on_shapes_the_kernels_do_not_take():
         pdm.fused_linear_w8(x, w, 2)
     with pytest.raises(ValueError):  # vocab not a multiple of 128
         pdm.fused_head_argmax(x, _head(g, 200, 128))
+    with pytest.raises(ValueError):  # F not a multiple of 128
+        pdm.fused_mlp_w8(x, _w8(g, 1, 128, 192), _w8(g, 1, 128, 192), _w8(g, 1, 192, 128), 0)

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA copies through 4-D tensor
-// maps, wgmma in its ss/rs forms with shared-memory descriptors of 128-byte
-// swizzled tiles, setmaxnreg, and the host-side tensor-map encoder.
+// (flash_fwd.cu, flash_bwd.cu) and the W8 GEMMs (decode_matmul.cu): mbarriers,
+// TMA copies through 4-D tensor maps, wgmma in its ss/rs forms with
+// shared-memory descriptors of 128-byte swizzled tiles, setmaxnreg, and the
+// host-side tensor-map encoder.
 //
-// Every tile in shared memory is written by TMA as 64-column boxes (128 bytes
-// of bf16 a row) with the 128-byte swizzle; a D = 128 row is two boxes.
+// Every flash tile in shared memory is written by TMA as 64-column boxes (128
+// bytes of bf16 a row) with the 128-byte swizzle; a D = 128 row is two boxes.
 //
 // kernel_build hashes this header with every source that includes it, so an
 // edit here rebuilds them.

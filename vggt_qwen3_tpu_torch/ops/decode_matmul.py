@@ -22,9 +22,11 @@ oracle ``mlp_w8_xla`` is. CPU tensors take them; CUDA tensors launch the
 ``qkv_eligible``, ``linear_eligible``, ``head_argmax_eligible``: batch size
 and VMEM tiling) are not carried over: the kernels take any number of rows
 and raise on a K that is not a multiple of 64 or an N that is not a multiple
-of 128. How ``w8_gemm`` (QKV, WO, the MLP's down projection) cuts a launch,
-and so orders its sums, is the kernel's own choice and depends on (M, K)
-only (``w8_gemm_plan`` in ``csrc/decode_matmul.cu`` returns it).
+of 128. How ``w8_gemm`` (QKV, WO, the MLP's down projection) and
+``w8_swiglu`` (gate/up) cut a launch, and so order their sums, is the
+kernel's own choice and depends on (M, K) only (``w8_gemm_plan`` in
+``csrc/decode_matmul.cu`` returns it): the gate and up sums of a
+``fused_mlp_w8`` equal those of ``fused_linear_w8`` over either weight.
 """
 
 from __future__ import annotations
@@ -44,9 +46,9 @@ launches: Dict[str, int] = {
     "fused_qkv_w8": 0, "fused_linear_w8": 0, "fused_mlp_w8": 0, "fused_head_argmax": 0,
 }
 
-K_TILE = 64    # the kernels' depth step: K must be a multiple
-N_TILE = 128   # the layer GEMM's and the head's column tile: N (and V) must be a multiple
-MLP_N_TILE = 64
+K_TILE = 64        # the kernels' depth step: K must be a multiple
+N_TILE = 128       # the weight box of every kernel: N, F and V must be multiples
+HEAD_V_TILE = 256  # vocab rows of a head_argmax block: one partial (max, index) a row each
 
 
 def _at(w: Dict[str, torch.Tensor], li: int) -> Dict[str, torch.Tensor]:
@@ -184,6 +186,20 @@ def fused_linear_w8(x: torch.Tensor, w: dict, li: int) -> torch.Tensor:
     return out
 
 
+def _swiglu(name: str, x: torch.Tensor, gate: dict, up: dict, li: int) -> torch.Tensor:
+    """One ``w8_swiglu`` launch: the activation ``bf16(silu(g)) * u`` [M, F]
+    of layer ``li``."""
+    M, K = x.shape
+    gp, gs, Fd = _layer_ptrs(name, x, gate, li, N_TILE)
+    up_p, us, Fu = _layer_ptrs(name, x, up, li, N_TILE)
+    if Fu != Fd:
+        raise ValueError(f"{name}: gate/up shapes {tuple(gate['w8'].shape)} {tuple(up['w8'].shape)}")
+    a = torch.empty((M, Fd), dtype=torch.bfloat16, device=x.device)
+    kernel_build.check(_lib().w8_swiglu(x.data_ptr(), M, K, gp, gs, up_p, us, a.data_ptr(), Fd, _stream(x)),
+                       f"{name} (gate/up)")
+    return a
+
+
 def fused_mlp_w8(x: torch.Tensor, gate: dict, up: dict, down: dict, li: int) -> torch.Tensor:
     """SwiGLU MLP ``(silu(x@gate) · (x@up)) @ down`` at layer ``li``, two
     launches: the gate/up dual GEMM writing the activation [M, F], then the
@@ -192,16 +208,13 @@ def fused_mlp_w8(x: torch.Tensor, gate: dict, up: dict, down: dict, li: int) -> 
     if not _use_kernel(name, x):
         return fused_mlp_w8_plain(x, gate, up, down, li)
     _check_x(name, x)
-    M, H = x.shape
-    gp, gs, Fd = _layer_ptrs(name, x, gate, li, MLP_N_TILE)
-    up_p, us, Fu = _layer_ptrs(name, x, up, li, MLP_N_TILE)
-    if Fu != Fd or Fd % K_TILE or tuple(down["w8"].shape[1:]) != (Fd, H):
+    H = x.shape[1]
+    if tuple(down["w8"].shape[1:]) != (gate["w8"].shape[-1], H):
         raise ValueError(f"{name}: gate/up/down shapes {tuple(gate['w8'].shape)} "
                          f"{tuple(up['w8'].shape)} {tuple(down['w8'].shape)}")
-    a = torch.empty((M, Fd), dtype=torch.bfloat16, device=x.device)
-    kernel_build.check(_lib().w8_swiglu(x.data_ptr(), M, H, gp, gs, up_p, us, a.data_ptr(), Fd, _stream(x)),
-                       "fused_mlp_w8 (gate/up)")
-    (out,) = _gemm(name, a, (down,), li)
+    if H % N_TILE:
+        raise ValueError(f"{name} kernel takes N a multiple of {N_TILE} (the down projection's), got {H}")
+    (out,) = _gemm(name, _swiglu(name, x, gate, up, li), (down,), li)
     launches[name] += 1
     return out
 
@@ -227,7 +240,7 @@ def fused_head_argmax(x: torch.Tensor, head: dict) -> Tuple[torch.Tensor, torch.
     for t in (w8, s):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name}: head must be contiguous and on {x.device}")
-    n_tiles = V // N_TILE
+    n_tiles = -(-V // HEAD_V_TILE)
     pval = torch.empty((M, n_tiles), dtype=torch.float32, device=x.device)
     pidx = torch.empty((M, n_tiles), dtype=torch.int32, device=x.device)
     tok = torch.empty((M,), dtype=torch.int32, device=x.device)
