@@ -66,7 +66,9 @@ Run from the root of a checkout. It:
    on the CPU (plain versions): bf16; W8 with an int8 cache; and
    speculative decoding under the action-JSON constraint with an int8 cache
    (tokens equal on every row whose every step has a top-2 gap above
-   1e-4·max|logit|); and the training step (bf16, the tower unfrozen, 4 micro
+   1e-4·max|logit|); the slot engine (int8 cache, batched and mid-decode
+   admission, plain and speculative chunks; the same rule per request); and
+   the training step (bf16, the tower unfrozen, 4 micro
    steps at grad_accum 2: losses, grad norms, the vision gradients, the
    updates), then saves and restores that train state and checks the next
    steps;
@@ -102,7 +104,33 @@ Run from the root of a checkout. It:
    on the card); the same verify block with the kernel holds each layer's
    kernel call to the plain version on its inputs; then a profile of one
    speculative run cut at 128 new tokens;
-8. drives the SFT training path at full width through the trainer's entry
+8. drives the serving path at full width through the port's HTTP server
+   (``inference.server``, ``ThreadingHTTPServer`` on a free localhost port)
+   on the stage of ``configs/stage1_3d.yaml`` with the server's defaults
+   (``qwen3.quantize_params`` W8 text weights, ``vlm.quantize_vision("w8")``,
+   int8 KV cache; 8 slots, 32 new tokens, prompt bucket 64, decode chunk 4,
+   byte tokenizer; the image loader replaced by one that returns seeded
+   views): 12 ScanQA requests through the slots service, 8 at once and 4
+   once the first chunk ran (two with budgets 8 and 16), asserting 200s,
+   ``/healthz``, a mid-decode admission and every launch count;
+   requests/s and p50/p95 latency (HTTP, and the engine's
+   ``track_metrics``); a window of 4 requests to the slots service and 1 to
+   the speculative one, 8 new tokens each, under the profiler (device busy
+   and idle share, device-only tracing; each of our families' launches must
+   all be seen); each request's tokens held to ``engine.generate`` of its
+   spliced prompt at B = 1 (identical, or first different at a step whose
+   top-2 gap is under 1e-3·max|logit|, or under twice the larger of two
+   logit distances on the same tokens teacher-forced: the serving schedules
+   — 8 rows in a 256-slot cache, decode steps and a 56-row verify block —
+   against B = 1 with the plain attention versions, and the kernels against
+   the plain versions on those schedules, every kernel call there held to
+   its plain version on its inputs); the same 12 requests through the
+   speculative slots service (kernel 3; its tokens held to the slots run's
+   by the same rule) and 8 through the batch service; on
+   each slot engine a registered prefix and two requests on it (the chunked
+   prefill and steps over holed rows: kernels 1–3 must not launch after it,
+   the W8 kernels must);
+9. drives the SFT training path at full width through the trainer's entry
    points on the stage of ``configs/stage1_3d.yaml`` (``train_stage``: 6.18 B
    params, LoRA r16 on qkvo, text layers 0-3 frozen; 2 rows a micro step,
    grad_accum 2, a 4-step schedule; ScanQA/SQA3D placeholder records with
@@ -114,7 +142,8 @@ Run from the root of a checkout. It:
    trainable leaf changed unless its update is under half a bf16 ulp
    everywhere; micro-step wall time, tokens/s, peak memory and a profile of
    one micro step with its update;
-9. prints the kernels line, the card line and, last, the ok line.
+10. prints the kernels line (with each kernel's launches on the serving
+   path, ``serve_launches``), the card line and, last, the ok line.
 
 Any failure raises and the script exits non-zero. Without a CUDA device, or
 outside a checkout of the repo, it exits non-zero before printing a result.
@@ -139,12 +168,15 @@ change, parent.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import itertools
 import json
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -377,8 +409,10 @@ def device_ms(fn, iters: int) -> float:
     """Device time of one call of ``fn``: the sum of its kernels' durations as
     ``torch.profiler`` records them, over ``iters`` calls. Unlike
     :func:`cuda_ms` it leaves out the host's time between launches, which is
-    what a back-to-back loop of a short kernel measures."""
-    return sum(device_ms_by_kernel(fn, iters).values())
+    what a back-to-back loop of a short kernel measures. Where no profiler
+    session saw every launch, the time is taken with CUDA events instead
+    (host gaps included: never below the device time)."""
+    return sum(device_ms_by_kernel(fn, iters, events_fallback=True).values())
 
 
 def sm_clock_hz() -> float:
@@ -501,33 +535,63 @@ def check_flash(name, B, S, T, NH, NKV, D, *, causal, starts, gen, with_lse=Fals
     return out
 
 
-def device_ms_by_kernel(fn, iters: int) -> dict:
+PAD_KERNEL = "spin_kernel"  # the kernel of torch.cuda._sleep
+
+
+def profiler_pad() -> None:
+    """A few short kernels of ``torch.cuda._sleep`` at the end of a profiler
+    session, after its work has finished: a session that loses its last
+    device records then loses these. Their records are left out of every
+    measurement (``PAD_KERNEL``)."""
+    import torch
+
+    for _ in range(8):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def device_ms_by_kernel(fn, iters: int, events_fallback: bool = False) -> dict:
     """Device time of one call of ``fn`` by kernel name (``torch.profiler``).
     A profiler session now and then records no device activity at all, or
     only part of it (a kernel seen a number of times that is not a multiple
     of ``iters``, which reads a time below the kernel's); such a session is
-    run again, twice at most, and if none of the three saw every launch
-    this raises."""
+    run again, four times at most. If none of the five saw every launch,
+    this raises, or with ``events_fallback`` times the ``iters`` calls with
+    CUDA events and returns that one time under the name
+    ``"all kernels (CUDA events)"``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     events = []
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            profiler_pad()
         by, seen = {}, {}
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.device_type == torch.autograd.DeviceType.CUDA and PAD_KERNEL not in e.name:
                 by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
                 seen[e.name] = seen.get(e.name, 0) + 1
         if by and all(n % iters == 0 for n in seen.values()):
             return by
         events.append(sum(seen.values()))
-    raise AssertionError(f"every profiler session missed launches: {events} device events over {iters} calls")
+        time.sleep(0.2)  # let the profiler's last records drain before the next session
+    if not events_fallback:
+        raise AssertionError(f"every profiler session missed launches: {events} device events over {iters} calls")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    print(f"device_ms: every profiler session missed launches ({events} device events over {iters} calls); "
+          f"timed with CUDA events: {ms} ms a call", flush=True)
+    return {"all kernels (CUDA events)": ms}
 
 
 def check_flash_backward(name, B, S, NH, NKV, D, *, causal, starts, ends, gen):
@@ -1393,6 +1457,91 @@ def reference_check_speculative(seed: int):
         raise AssertionError("speculative reference check: card and CPU differ on a decisive row, or none is")
 
 
+def reference_check_slots(seed: int):
+    """A small-width bf16 model (head dim 64, so the kernels run) serves
+    through the slot engine with an int8 cache, on the card and on the CPU:
+    four requests admitted at once, two more admitted mid-decode as slots
+    free (one request's budget is 4), plain chunks and then speculative ones
+    (prompt-lookup drafts from the prompt ids). A request is decisive where
+    the CPU's B = 1 ``engine.generate`` gives the CPU slot engine's tokens
+    and its top-2 gap exceeds 1e-4·max|logit| at every step; every decisive
+    request must give the same tokens on the card, and one must exist. The
+    card's runs must launch the decode-attention (plain chunks) and
+    block-verify (speculative) kernels."""
+    import torch
+
+    from vggt_qwen3_tpu_torch.config import Qwen3Config
+    from vggt_qwen3_tpu_torch.inference import engine
+    from vggt_qwen3_tpu_torch.inference.slots import SlotEngine
+    from vggt_qwen3_tpu_torch.models import qwen3
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+
+    cfg = Qwen3Config(vocab_size=1024, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      intermediate_size=512)
+    cpu_params = qwen3.init_params(torch.Generator().manual_seed(seed + 2), cfg)
+    R, S, N = 6, 24, 24
+    rng = np.random.default_rng(seed + 2)
+    ids = rng.integers(1, 256, (R, S)).astype(np.int32)
+    mask = np.ones((R, S), np.int32)
+    for r in range(R):  # left pads of 0..5
+        mask[r, :r] = 0
+        ids[r, :r] = 0
+    budgets = [None, 4, None, None, None, 12]
+    gcfg = engine.GenerationConfig(max_new_tokens=N, pad_token_id=0, repetition_penalty=1.1, kv_dtype="int8")
+
+    def serve(dev, params, spec):
+        eng = SlotEngine(params, cfg, gcfg, num_slots=4, max_len=S + N, decode_chunk=4, speculative=spec,
+                         draft_k=DRAFT_K, spec_chunk=2, spec_min_gain=0.5)
+        with torch.inference_mode():
+            emb = [qwen3.embed_tokens(params, torch.from_numpy(ids[r:r + 1]).to(dev)) for r in range(R)]
+
+        def submit(r):
+            return eng.submit_embeds(emb[r], torch.from_numpy(mask[r:r + 1]), max_new_tokens=budgets[r],
+                                     lookup_ids=torch.from_numpy(ids[r:r + 1]) if spec else None)
+
+        futs = [submit(r) for r in range(4)]
+        eng.step_once()
+        futs += [submit(r) for r in range(4, R)]
+        eng.run_until_idle()
+        return [f.result(timeout=0) for f in futs], eng.stats
+
+    cpu = {spec: serve(torch.device("cpu"), cpu_params, spec)[0] for spec in (False, True)}
+    refs = []
+    for r in range(R):
+        with torch.inference_mode():
+            (toks, _), gaps = constrained_gaps(engine, lambda: engine.generate(
+                cpu_params, cfg, gcfg, inputs_embeds=qwen3.embed_tokens(cpu_params, torch.from_numpy(ids[r:r + 1])),
+                attention_mask=torch.from_numpy(mask[r:r + 1])))
+        refs.append((toks[0], gaps[:, 0]))
+    gpu_params = _to_device(cpu_params, "cuda")
+    fa.launches, da.launches, da.verify_launches = 0, 0, 0
+    card_plain, stats_plain = serve(torch.device("cuda"), gpu_params, False)
+    launched_plain = (fa.launches, da.launches, da.verify_launches)
+    da.launches, da.verify_launches = 0, 0
+    card_spec, stats_spec = serve(torch.device("cuda"), gpu_params, True)
+    launched_spec = (da.launches, da.verify_launches)
+    torch.cuda.synchronize()
+    report = {}
+    for name, card, cpu_run in (("plain", card_plain, cpu[False]), ("speculative", card_spec, cpu[True])):
+        decisive = [len(cpu_run[r][0]) > 0 and np.array_equal(cpu_run[r][0], refs[r][0][:cpu_run[r][1]])
+                    and refs[r][1][:cpu_run[r][1]].min() > 1e-4 for r in range(R)]
+        same = [np.array_equal(card[r][0], cpu_run[r][0]) for r in range(R)]
+        report[name] = (int(sum(decisive)), int(sum(d and s for d, s in zip(decisive, same))), int(sum(same)))
+        if not any(decisive) or not all(s for d, s in zip(decisive, same) if d):
+            raise AssertionError(f"slot reference check ({name}): card and CPU differ on a decisive request, "
+                                 f"or none is: decisive {decisive}, identical {same}")
+    print(f"reference check (small width, slot engine, int8 cache, card vs CPU, {R} requests, 4 slots): "
+          f"(decisive, decisive and identical, identical) plain {report['plain']}, speculative "
+          f"{report['speculative']}; card admissions {stats_plain.admit_dispatches} dispatches, "
+          f"{stats_plain.admitted_mid_decode} mid-decode; launches (flash, decode, verify) plain {launched_plain}, "
+          f"speculative (decode, verify) {launched_spec}", flush=True)
+    if not (launched_plain[0] > 0 and launched_plain[1] > 0 and launched_spec[1] > 0
+            and stats_plain.admitted_mid_decode >= 1 and stats_spec.spec_blocks > 0):
+        raise AssertionError(f"slot reference check: kernels not launched or no mid-decode admission "
+                             f"({launched_plain}, {launched_spec}, {stats_plain}, {stats_spec})")
+
+
 def _fingerprint(t):
     """An exact fingerprint of a tensor's bits: (sum, sum of squares) of its
     16-bit words as int64 — any update of an element changes it."""
@@ -1821,8 +1970,6 @@ def w8_bench_path(args):
     W8 weights, int8 cache, B=368, prompt 32, 128 greedy steps. The launch
     counters are set to 0 just before the first timed ``generate`` and read
     just after it; the second timed run must give the same tokens."""
-    import contextlib
-
     import torch
 
     from vggt_qwen3_tpu_torch import bench
@@ -1959,27 +2106,576 @@ def arkit_path(args):
     return plain["counts"], spec_a["counts"]
 
 
+SERVE_SLOTS, SERVE_BUCKET, SERVE_CHUNK = 8, 64, 4
+SERVE_BUDGETS = {9: 8, 11: 16}  # two of the four late requests carry their own budgets
+SERVE_HINT = "Answer briefly.\n"
+
+
+def serve_requests(seed: int):
+    """The 12 requests of the serving phase: the 8 ScanQA test questions
+    with seeded views, then the first 4 again with other seeded views (two
+    with their own ``max_new_tokens``). Images are named by paths the phase's
+    loader maps to the seeded views (no image decoder on the card)."""
+    samples = load_samples(seed) + load_samples(seed + 1)[:4]
+    views, requests = {}, []
+    for i, s in enumerate(samples):
+        paths = [f"seeded://{i}/{j}.png" for j in range(len(s["images"]))]
+        views.update(zip(paths, s["images"]))
+        r = {"question": s["question"], "images": paths}
+        if i in SERVE_BUDGETS:
+            r["max_new_tokens"] = SERVE_BUDGETS[i]
+        requests.append(r)
+    return requests, views
+
+
+def _http(port: int, method: str, path: str, payload=None):
+    """(status, JSON body, seconds) of one request to the local server."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, json.loads(r.read()), time.perf_counter() - t
+
+
+class _Served:
+    """A service behind ``ThreadingHTTPServer`` on a free localhost port,
+    its slot engine's submissions recorded by request index (the phase's
+    image loader tells the handler thread which request it splices)."""
+
+    local = threading.local()  # one for every service: the loader is the server module's
+
+    def __init__(self, service, views):
+        from http.server import ThreadingHTTPServer
+
+        from vggt_qwen3_tpu_torch.inference import server
+
+        self.service, self.captured = service, {}
+
+        def load_images(paths):
+            _Served.local.idx = int(paths[0].split("/")[2])
+            return [views[p] for p in paths]
+
+        server.load_images = load_images
+        eng = getattr(service, "engine", None)
+        if eng is not None:
+            real = eng.submit_embeds
+
+            def recording(embeds, mask, **kw):
+                fut = real(embeds, mask, **kw)
+                if kw.get("prefix_id") is None:
+                    self.captured[_Served.local.idx] = (embeds, mask, fut)
+                return fut
+
+            eng.submit_embeds = recording
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler(service))
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def drive(self, requests, late: int = 0):
+        """Post ``requests`` concurrently; the last ``late`` of them once the
+        engine has run a chunk after the first were sent. → (responses in
+        request order, seconds from the first post to the last answer)."""
+        eng = getattr(self.service, "engine", None)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(requests)) as ex:
+            chunks0 = eng.stats.chunks if eng is not None else 0
+            futs = [ex.submit(_http, self.port, "POST", "/v1/qa", r) for r in requests[:len(requests) - late]]
+            while late and eng.stats.chunks <= chunks0:
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("serving: no decode chunk ran within 300 s")
+                time.sleep(0.002)
+            futs += [ex.submit(_http, self.port, "POST", "/v1/qa", r) for r in requests[len(requests) - late:]]
+            out = [f.result() for f in futs]
+        return out, time.perf_counter() - t0
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.service.stop()
+
+
+def _zero_counters():
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+    from vggt_qwen3_tpu_torch.ops import decode_matmul as dm
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+
+    fa.launches = fa.dq_launches = fa.dkv_launches = da.launches = da.verify_launches = 0
+    dm.launches.update(dict.fromkeys(dm.launches, 0))
+
+
+def _counters() -> dict:
+    """Every wrapper's launch count, by kernel name (those of the kernels line)."""
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+    from vggt_qwen3_tpu_torch.ops import decode_matmul as dm
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+
+    return dict(flash_fwd=fa.launches, decode_attention=da.launches, block_verify_attention=da.verify_launches,
+                **dm.launches, flash_bwd_dq=fa.dq_launches, flash_bwd_dkv=fa.dkv_launches)
+
+
+def serve_witness(params, cfg, items, T_slot: int, N: int, K: int = DRAFT_K + 1):
+    """How far the serving schedules' logits lie from ``engine.generate``'s
+    at B = 1 on the card, on the same tokens (each request's first K served
+    tokens, teacher-forced): the 8 first requests' spliced prompts prefilled
+    together into an int8 cache of the slot engine's row length ``T_slot``,
+    then K − 1 one-token decode steps (8 rows) or one K-token verify block
+    (8 × K rows, the speculative chunks' block), against each request alone
+    in ``engine.generate``'s cache of S + N slots through K − 1 decode steps.
+
+    Measured twice: with qwen3's attention routed through the plain versions
+    (the schedules' noise, as in ``schedule_witness``), and with the kernels
+    (their rounding against the plain versions), every kernel call of that
+    second run held to its plain version on the same inputs
+    (``utils.agreement``, tol 2e-2): decode attention at 8 rows over
+    ``T_slot`` slots and at 1 row, block verify at 8 × K rows, the fused W8
+    groups (which the first run runs too) at 8, 8 × K and 1 rows; a kernel
+    outside that tolerance fails here instead of widening the result.
+    → (schedule noise, kernels vs plain), each the max over rows and steps
+    of max|Δlogit| / max|logit|."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = items[0][0].device
+    S = max(e.shape[1] for e, _, _ in items)
+    emb = torch.cat([F.pad(e, (0, 0, S - e.shape[1], 0)) for e, _, _ in items])
+    mask = torch.cat([F.pad(m.to(dev).int(), (S - m.shape[1], 0)) for _, m, _ in items])
+    toks = torch.stack([torch.from_numpy(np.pad(t[:K], (0, max(0, K - len(t))))) for _, _, t in items]).to(dev)
+    held, logits = [], {}
+    for route, fns in (("plain", plain_attention()), ("kernels", held_kernels(held))):
+        with qwen3_routed(**fns):
+            decode = teacher_forced(params, cfg, emb, mask, toks[:, :K - 1], T_slot, block=False, kv_dtype="int8")
+            verify = teacher_forced(params, cfg, emb, mask, toks, T_slot, block=True, kv_dtype="int8")[:, :K - 1]
+            alone = torch.cat([teacher_forced(params, cfg, e, m, toks[r:r + 1, :K - 1], e.shape[1] + N,
+                                              block=False, kv_dtype="int8") for r, (e, m, _) in enumerate(items)])
+        logits[route] = decode, verify, alone
+    decode, verify, alone = logits["plain"]
+    noise = max(_rel(decode, alone), _rel(verify, alone))
+    kernels = max(_rel(k, p) for k, p in zip(logits["kernels"], logits["plain"]))
+    worst = {}
+    for name, rows, h in held:
+        w = worst.setdefault(f"{name} ({rows} rows)", dict(outputs=0, ok=True, rel_rms=0.0))
+        w["outputs"] += 1
+        w["ok"] &= h["ok"]
+        w["rel_rms"] = max(w["rel_rms"], h["rel_rms"])
+    print(f"serving path: kernel calls of the teacher-forced schedules held to their plain versions (rel_rms limit "
+          f"5e-3): {json.dumps(worst)}", flush=True)
+    if not all(h["ok"] for _, _, h in held) or {n for n, _, _ in held} != set(STEP_KERNELS):
+        raise AssertionError("serving path: a kernel disagrees with its plain version at the serving shapes")
+    return noise, kernels
+
+
+def held_to_slots(spec_served, served, refs, limit: float) -> int:
+    """The speculative service's tokens against the slots service's, under
+    the rule of ``held_to_generate``: identical, or differing first at a
+    step whose top-2 gap in ``engine.generate``'s run (``refs``) is under
+    ``limit``. Where the slots run already left the reference before that
+    step, its own first departure is the step judged. Returns the number of
+    identical requests."""
+    same, firsts = 0, []
+    for idx, (_, _, toks) in sorted(served.items()):
+        other = spec_served[idx][2]
+        ref, gaps = refs[idx]
+        n = min(len(toks), len(other))
+        diff = np.nonzero(toks[:n] != other[:n])[0]
+        t = int(diff[0]) if len(diff) else n
+        if t == len(toks) == len(other):
+            same += 1
+            continue
+        left = np.nonzero(ref[:len(toks)] != toks)[0]
+        judged = min(t, int(left[0])) if len(left) else t
+        firsts.append((idx, t, judged, float(gaps[judged])))
+        if not gaps[judged] < limit:
+            raise AssertionError(f"serving: speculative request {idx} differs from the slots run's at step {t}, "
+                                 f"judged at step {judged} (top-2 gap {gaps[judged]:.3e} ≥ {limit:.3e})")
+    print(f"serving (speculative vs slots): {same}/{len(served)} identical; (request, first differing step, step "
+          f"judged, gap there) {firsts}", flush=True)
+    return same
+
+
+def held_to_generate(label, params, cfg, gen_cfg, served, limit: float, refs: dict):
+    """Each served request's tokens against ``engine.generate`` of its
+    spliced prompt at B = 1 (``refs`` caches it by request index: tokens
+    and the top-2 gap of each step relative to max|logit|): identical, or
+    differing first at a step whose gap is under ``limit``. Returns
+    (decisive requests, decisive and identical, identical)."""
+    import torch
+
+    from vggt_qwen3_tpu_torch.inference import engine
+
+    counts = [0, 0, 0]
+    firsts = []
+    for idx, (emb, mask, toks) in sorted(served.items()):
+        if idx not in refs:
+            with torch.inference_mode():
+                (ref, _), gaps = constrained_gaps(engine, lambda: engine.generate(
+                    params, cfg, gen_cfg, inputs_embeds=emb, attention_mask=mask))
+            refs[idx] = (ref[0], gaps[:, 0])
+        ref, gaps = refs[idx]
+        n = len(toks)
+        decisive = bool(gaps[:n].min() >= limit)
+        diff = np.nonzero(ref[:n] != toks)[0]
+        same = not len(diff)
+        counts[0] += decisive
+        counts[1] += decisive and same
+        counts[2] += same
+        if not same:
+            t = int(diff[0])
+            firsts.append((idx, t, float(gaps[t])))
+            if not gaps[t] < limit:
+                raise AssertionError(f"{label}: request {idx} differs from engine.generate at a decisive step {t} "
+                                     f"(top-2 gap {gaps[t]:.3e} ≥ {limit:.3e})")
+    print(f"{label}: held to engine.generate at B = 1 (a flip needs a top-2 gap under {limit:.3e} of max|logit|): "
+          f"{len(served)} requests, decisive {counts[0]}, decisive and identical {counts[1]}, identical {counts[2]}; "
+          f"first differing step and gap there {firsts}", flush=True)
+    return tuple(counts)
+
+
+def serve_path(args, smi: str):
+    """The serving path at full width through the port's HTTP server: the
+    stage of ``configs/stage1_3d.yaml`` with the server's defaults (W8 text
+    weights, W8 VGGT blocks, int8 KV cache), 8 slots, 32 new tokens, prompt
+    bucket 64, decode chunk 4, the byte tokenizer. 12 ScanQA requests over
+    localhost through the slots service (8 at once, 4 once the first chunk
+    ran), again under the profiler, through the speculative slots service,
+    8 through the batch service; then on each slot engine a registered
+    prefix and two requests on it (the chunked prefill, then decode or
+    verify blocks over holed rows: kernels 2 and 3 must not launch).
+    Returns the launch counts of the slots run, the speculative run and the
+    batch run."""
+    import dataclasses
+
+    import torch
+
+    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
+    from vggt_qwen3_tpu_torch.inference import qa, server
+    from vggt_qwen3_tpu_torch.models import qwen3, vlm
+
+    stage = full_stage()
+    cfg, L = stage.model.text, stage.model.text.num_layers
+    vc = stage.model.vision
+    per_splice = vc.patch_depth + 2 * vc.num_layers
+    t0 = time.perf_counter()
+    params = qa.load_model(stage, rng_seed=args.seed, device="cuda")
+    params = dict(params, text=qwen3.quantize_params(dict(params["text"])))
+    params = vlm.quantize_vision(params, mode="w8")
+    torch.cuda.synchronize()
+    print(f"serving path: random init, W8 text and W8 VGGT blocks in {time.perf_counter() - t0:.1f} s", flush=True)
+    tok = load_tokenizer(None)
+    requests, views = serve_requests(args.seed)
+    real_loader = server.load_images
+    kw = dict(num_slots=SERVE_SLOTS, max_new_tokens=args.max_new_tokens, prompt_bucket=SERVE_BUCKET,
+              decode_chunk=SERVE_CHUNK, kv_dtype="int8", track_metrics=True)
+    runs, refs, parts = {}, {}, {}
+    t_mark = [time.perf_counter()]
+
+    def mark(part):  # seconds since the previous mark
+        now = time.perf_counter()
+        parts[part] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
+    try:
+        slots = _Served(server.SlotQAService(stage, tok, params, **kw), views)
+        eng = slots.service.engine
+        drive = lambda: slots.drive(requests, late=4)  # noqa: E731
+        slots.drive(requests[:1])  # warm-up: the first splice, admission and decode
+        mark("slots warm-up")
+        slots.captured.clear()
+        eng.req_meta.clear()
+        before = _http(slots.port, "GET", "/healthz")[1]
+        s0 = dataclasses.replace(eng.stats)
+        torch.cuda.synchronize()
+        _zero_counters()
+        out, wall = drive()
+        torch.cuda.synchronize()
+        counts = _counters()
+        after = _http(slots.port, "GET", "/healthz")[1]
+        steps = (eng.stats.chunks - s0.chunks) * SERVE_CHUNK
+        admits = eng.stats.admit_dispatches - s0.admit_dispatches
+        codes = [c for c, _, _ in out]
+        if codes != [200] * len(requests) or not all(isinstance(b.get("prediction"), str) for _, b, _ in out):
+            raise AssertionError(f"serving (slots): statuses {codes}")
+        if after["requests"] - before["requests"] != len(requests) or after["tokens"] <= before["tokens"] \
+                or eng.stats.admitted_mid_decode - s0.admitted_mid_decode < 1:
+            raise AssertionError(f"serving (slots): /healthz {before} → {after}, stats {eng.stats}")
+        want = dict(flash_fwd=per_splice * len(requests) + L * admits, decode_attention=L * steps,
+                    block_verify_attention=0, fused_qkv_w8=L * steps, fused_linear_w8=L * steps,
+                    fused_mlp_w8=L * steps, fused_head_argmax=0, flash_bwd_dq=0, flash_bwd_dkv=0)
+        if counts != want:
+            raise AssertionError(f"serving (slots): launches {counts}, expected {want}")
+        lat = sorted(t for _, _, t in out)
+        meta = [eng.req_meta.pop(f) for _, _, f in slots.captured.values()]
+        e2e = sorted(m["done"] - m["submit"] for m in meta)
+        ttft = sorted(m["first_tok"] - m["submit"] for m in meta)
+        served = {i: (e, m, f.result()[0]) for i, (e, m, f) in slots.captured.items()}
+        n_tok = sum(len(t) for _, _, t in served.values())
+        print(f"serving path (slots, {len(requests)} requests over HTTP, {SERVE_SLOTS} slots, W8 + int8 KV): "
+              f"{wall:.3f} s, {len(requests) / wall:.3f} requests/s, {n_tok / wall:.1f} tokens/s; request latency "
+              f"p50 {np.percentile(lat, 50):.3f} s, p95 {np.percentile(lat, 95):.3f} s (HTTP); engine submit→done "
+              f"p50 {np.percentile(e2e, 50):.3f}, p95 {np.percentile(e2e, 95):.3f} s, first token p50 "
+              f"{np.percentile(ttft, 50):.3f} s (track_metrics); {eng.stats.chunks - s0.chunks} chunks, "
+              f"{admits} admissions ({eng.stats.admitted_mid_decode - s0.admitted_mid_decode} mid-decode), "
+              f"KV occupancy {eng.stats.kv_utilization:.3f}; launches {json.dumps(counts)} | {smi}", flush=True)
+        runs["slots"] = counts
+        mark("slots run")
+
+        spec = _Served(server.SlotQAService(stage, tok, params, speculative=True, draft_k=DRAFT_K, spec_chunk=4,
+                                            **kw), views)
+        seng = spec.service.engine
+        # random weights leave drafts little chance: the guard (1.35 tokens a
+        # block) would turn verify blocks off; at 0.5 it never trips and
+        # still counts the blocks
+        seng.spec_min_gain = 0.5
+        spec.drive(requests[:1])  # warm-up
+        spec.captured.clear()
+        s0 = dataclasses.replace(seng.stats)
+        torch.cuda.synchronize()
+        _zero_counters()
+        out, swall = spec.drive(requests, late=4)
+        torch.cuda.synchronize()
+        counts = _counters()
+        if [c for c, _, _ in out] != [200] * len(requests):
+            raise AssertionError(f"serving (speculative): statuses {[c for c, _, _ in out]}")
+        blocks = seng.stats.spec_blocks - s0.spec_blocks
+        n_blocks = (seng.stats.chunks - s0.chunks) * 4
+        admits = seng.stats.admit_dispatches - s0.admit_dispatches
+        want = dict(flash_fwd=per_splice * len(requests) + L * admits, decode_attention=0,
+                    block_verify_attention=L * n_blocks, fused_qkv_w8=L * n_blocks, fused_linear_w8=L * n_blocks,
+                    fused_mlp_w8=L * n_blocks, fused_head_argmax=0, flash_bwd_dq=0, flash_bwd_dkv=0)
+        if counts != want or seng.stats.spec_disabled_at is not None:
+            raise AssertionError(f"serving (speculative): launches {counts}, expected {want}")
+        spec_served = {i: (e, m, f.result()[0]) for i, (e, m, f) in spec.captured.items()}
+        same_as_slots = sum(np.array_equal(spec_served[i][2], served[i][2]) for i in served)
+        print(f"serving path (speculative slots, k={DRAFT_K}, 4 blocks a chunk): {swall:.3f} s, "
+              f"{len(requests) / swall:.3f} requests/s; {blocks} verify blocks, "
+              f"{(seng.stats.spec_accepted - s0.spec_accepted) / max(blocks, 1):.3f} tokens a block (all active "
+              f"slots); tokens identical to the slots run's in "
+              f"{same_as_slots}/{len(served)}; launches {json.dumps(counts)} | {smi}", flush=True)
+        runs["spec"] = counts
+        mark("speculative warm-up and run")
+
+        # one profiled window (the profiler's bookkeeping grows with the kernel
+        # events, ~1,500 a step): 4 requests to the slots service and 1 to the
+        # speculative one at once, 8 new tokens each — kernels 1–6 in one session
+        window = [dict(r, max_new_tokens=8) for r in requests[:4]]
+        spec_window = [dict(requests[4], max_new_tokens=8)]
+
+        def both():
+            with ThreadPoolExecutor(max_workers=2) as ex:
+                for f in [ex.submit(slots.drive, window), ex.submit(spec.drive, spec_window)]:
+                    f.result()
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        both()
+        torch.cuda.synchronize()
+        missed = profile_breakdown(f"serving window (4 requests to the slots service, 1 to the speculative one) | {smi}",
+                                   both, unprofiled_s=time.perf_counter() - t, host_ops=False, tries=5)
+        if missed:
+            raise AssertionError(f"serving: the profiler saw fewer launches than the wrappers counted {missed}")
+        mark("profile window")
+        noise, kdist = serve_witness(params["text"], cfg, [served[i] for i in range(8)], eng._row_len,
+                                     args.max_new_tokens)
+        limit = max(1e-3, 2 * max(noise, kdist))
+        print(f"serving path: the same tokens teacher-forced through 8 rows in a {eng._row_len}-slot cache (decode "
+              f"steps, and a {DRAFT_K + 1}-token verify block) and through 1 row in engine.generate's cache give "
+              f"logits that differ by up to {noise:.3e} of max|logit| with plain attention; the kernels' logits lie "
+              f"up to {kdist:.3e} from the plain versions' on the same schedules; a flip needs a top-2 gap under "
+              f"{limit:.3e}", flush=True)
+        mark("noise witness")
+        runs["slots_held"] = held_to_generate("serving (slots)", params["text"], cfg, slots.service.gen_cfg, served,
+                                              limit, refs)
+        mark("B = 1 references")
+        runs["slots_prefix"] = prefixed(eng, tok, params["text"], cfg, served, "slots")
+        runs["spec_held"] = held_to_generate("serving (speculative)", params["text"], cfg, spec.service.gen_cfg,
+                                             spec_served, limit, refs)
+        held_to_slots(spec_served, served, refs, limit)
+        runs["spec_prefix"] = prefixed(seng, tok, params["text"], cfg, spec_served, "speculative")
+        spec.close()
+        slots.close()
+        mark("speculative held, prefixes")
+
+        batch = _Served(server.QAService(stage, tok, params, max_batch=SERVE_SLOTS, max_wait_ms=50,
+                                         max_new_tokens=args.max_new_tokens, prompt_bucket=SERVE_BUCKET,
+                                         kv_dtype="int8"), views)
+        torch.cuda.synchronize()
+        _zero_counters()
+        out, bwall = batch.drive(requests[:SERVE_SLOTS])
+        torch.cuda.synchronize()
+        counts = _counters()
+        batch.close()
+        N = args.max_new_tokens
+        want = dict(flash_fwd=per_splice + L, decode_attention=L * N, block_verify_attention=0,
+                    fused_qkv_w8=L * N, fused_linear_w8=L * N, fused_mlp_w8=L * N, fused_head_argmax=0,
+                    flash_bwd_dq=0, flash_bwd_dkv=0)
+        if [c for c, _, _ in out] != [200] * SERVE_SLOTS or counts != want:
+            raise AssertionError(f"serving (batch): statuses {[c for c, _, _ in out]}, launches {counts}, "
+                                 f"expected {want}")
+        print(f"serving path (batch service, {SERVE_SLOTS} requests coalesced): {bwall:.3f} s, "
+              f"{SERVE_SLOTS / bwall:.3f} requests/s; launches {json.dumps(counts)} | {smi}", flush=True)
+        runs["batch"] = counts
+        mark("batch")
+        print(f"serving path by part (s): {json.dumps(parts)}", flush=True)
+    finally:
+        server.load_images = real_loader
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def prefixed(eng, tok, params, cfg, served, label):
+    """A system hint registered as a prefix on a running slot engine and
+    two requests admitted on it (the two shortest spliced prompts, their
+    left pads dropped, as suffixes; 8 new tokens each): the chunked
+    prefill, then every step over holed rows. Kernels 2 and 3 must not launch after the
+    prefixed admission, nor kernel 1 (the chunked prefill is plain
+    attention); the fused W8 kernels run every step. Returns the launch
+    counts."""
+    import torch
+
+    from vggt_qwen3_tpu_torch.models import qwen3
+
+    L = cfg.num_layers
+    hint = torch.tensor([tok(SERVE_HINT, add_special_tokens=False)["input_ids"]], device="cuda")
+    with torch.inference_mode():
+        hint_emb = qwen3.embed_tokens(params, hint)
+    pid = eng.register_prefix(hint_emb)
+    suffixes = []
+    for emb, mask, _ in sorted(served.values(), key=lambda s: int(s[1].sum()))[:2]:
+        pad = int((mask == 0).sum())
+        suffixes.append((emb[:, pad:], mask[:, pad:]))
+    torch.cuda.synchronize()
+    c0 = eng.stats.chunks
+    _zero_counters()
+    futs = [eng.submit_embeds(e, m, prefix_id=pid, max_new_tokens=8) for e, m in suffixes]
+    res = [f.result(timeout=300) for f in futs]
+    torch.cuda.synchronize()
+    counts = _counters()
+    fused = [counts[k] for k in ("fused_qkv_w8", "fused_linear_w8", "fused_mlp_w8")]
+    idle = ("decode_attention", "block_verify_attention", "flash_fwd", "fused_head_argmax", "flash_bwd_dq",
+            "flash_bwd_dkv")
+    if eng._frontier_ok or any(counts[k] for k in idle) or not all(n > 0 and n % L == 0 for n in fused):
+        raise AssertionError(f"serving ({label}) after a prefixed admission: launches {counts}")
+    if not all(0 < n <= 8 for _, n in res):
+        raise AssertionError(f"serving ({label}) prefixed requests: {[n for _, n in res]} tokens")
+    print(f"serving path ({label}): a prefix of {hint.shape[1]} tokens and 2 requests on it "
+          f"({[e.shape[1] for e, _ in suffixes]}-token suffixes): {[n for _, n in res]} tokens in "
+          f"{eng.stats.chunks - c0} chunks, launches {json.dumps(counts)}", flush=True)
+    return counts
+
+
+STEP_KERNELS = ("gqa_decode_attention", "gqa_block_verify_attention", "fused_qkv_w8", "fused_linear_w8",
+                "fused_mlp_w8")  # what qwen3's decode steps and verify blocks launch
+
+
+@contextlib.contextmanager
+def qwen3_routed(**fns):
+    """qwen3's kernel entry points (``STEP_KERNELS``) replaced by ``fns``
+    inside the block."""
+    from vggt_qwen3_tpu_torch.models import qwen3
+
+    real = {n: getattr(qwen3, n) for n in fns}
+    for n, f in fns.items():
+        setattr(qwen3, n, f)
+    try:
+        yield
+    finally:
+        for n, f in real.items():
+            setattr(qwen3, n, f)
+
+
+def plain_attention() -> dict:
+    """qwen3's decode and verify attention routed through the plain versions."""
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+
+    return dict(gqa_decode_attention=da.gqa_decode_attention_plain,
+                gqa_block_verify_attention=da.gqa_block_verify_attention_plain)
+
+
+def held_kernels(held: list, names=STEP_KERNELS) -> dict:
+    """qwen3's kernel entry points ``names``, each call's output held to its
+    plain version on the same inputs (``utils.agreement``, tol 2e-2):
+    (name, rows, agreement) is appended to ``held`` for every output."""
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+    from vggt_qwen3_tpu_torch.ops import decode_matmul as dm
+    from vggt_qwen3_tpu_torch.utils.agreement import agreement
+
+    def hold(name):
+        mod = da if name.startswith("gqa_") else dm
+        kernel, plain = getattr(mod, name), getattr(mod, name + "_plain")
+
+        def call(*a):
+            got, ref = kernel(*a), plain(*a)
+            rows = a[0].shape[0] * (a[0].shape[1] if name == "gqa_block_verify_attention" else 1)
+            for g, r in zip(*((t if isinstance(t, tuple) else (t,)) for t in (got, ref))):
+                held.append((name, rows, agreement(g, r)))
+            return got
+
+        return call
+
+    return {n: hold(n) for n in names}
+
+
+def teacher_forced(params, cfg, emb, mask, toks, T: int, *, block: bool, kv_dtype=None):
+    """Logits after each token of ``toks`` [B, n], teacher-forced through
+    qwen3 (its kernel entry points as routed): the left-padded prompts
+    ``emb`` [B, S, H] / ``mask`` [B, S] prefilled into a cache of ``T``
+    slots, then ``toks`` as n one-token decode steps, or (``block``) as one
+    n-token verify block at the frontier. → [B, n, V] float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from vggt_qwen3_tpu_torch.models import qwen3
+
+    B, S, _ = emb.shape
+    dev, n = emb.device, toks.shape[1]
+    mask = mask.to(dev).int()
+    am = F.pad(mask, (0, T - S))
+    pos = torch.clamp_min(torch.cumsum(mask, -1) - 1, 0)
+    jpos = torch.arange(n, device=dev)
+    with torch.inference_mode():
+        cache = qwen3.init_cache(cfg, B, T, dtype=kv_dtype, device=dev)
+        qwen3.forward(params, cfg, inputs_embeds=emb, attention_mask=am, positions=pos, cache=cache,
+                      prefill_padding="left", last_logit_only=True)
+        if block:
+            tpos = torch.arange(T, device=dev)[None, None, :]
+            bm = torch.where(tpos < S, am.bool()[:, None, :], (tpos - S) <= jpos[None, :, None]).int()
+            return qwen3.forward(params, cfg, input_ids=toks, attention_mask=bm,
+                                 positions=pos[:, -1:] + 1 + jpos[None, :], cache=cache,
+                                 cache_offset=torch.full((B,), S, device=dev), decode_frontier=True)[0].float()
+        out = []
+        for j in range(n):
+            am[:, S + j] = 1
+            logits, cache = qwen3.forward(params, cfg, input_ids=toks[:, j:j + 1], attention_mask=am,
+                                          positions=pos[:, -1:] + 1 + j, cache=cache, cache_offset=S + j,
+                                          decode_frontier=True)
+            out.append(logits[:, 0])
+    return torch.stack(out, 1).float()
+
+
+def _rel(a, b) -> float:
+    """max over rows and steps of max|a − b| / max|b| (logits [B, n, V])."""
+    return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+
+
 def schedule_witness(params, stage, tok, samples, tokens) -> float:
     """How far the two decode schedules' logits differ on the same tokens,
-    with no kernel of the path in them: after one prefill of the ARKit
-    batch, six one-token decode steps (GEMMs at 4 rows) against one 7-token
-    verify block (GEMMs at 28 rows) over the plain run's first tokens, both
-    with qwen3's attention routed through the plain versions on the card.
+    with no kernel of the path in them: after a prefill of the ARKit batch,
+    six one-token decode steps (GEMMs at 4 rows) against one 7-token verify
+    block (GEMMs at 28 rows) over the plain run's first tokens, both with
+    qwen3's attention routed through the plain versions on the card.
     Returns the max over rows and positions of max|Δlogit| / max|logit|.
 
     The same verify block then runs with the block-verify kernel, each
     layer's call held to the plain version on the same inputs
     (``utils.agreement``, tol 2e-2); its logits' distance from the plain
     block is printed."""
-    import contextlib
-
     import torch
-    import torch.nn.functional as F
 
     from vggt_qwen3_tpu_torch.inference import arkit, batching
-    from vggt_qwen3_tpu_torch.models import qwen3
-    from vggt_qwen3_tpu_torch.ops import decode_attention as da
-    from vggt_qwen3_tpu_torch.utils.agreement import agreement
 
     cfg, K = stage.model.text, DRAFT_K + 1
     prompts = [arkit.prompt_for(s["question"]) for s in samples]
@@ -1987,67 +2683,21 @@ def schedule_witness(params, stage, tok, samples, tokens) -> float:
     ids, mask = (torch.from_numpy(a).cuda() for a in batching.encode_prompts(tok, prompts, pad_to_len=pad_to))
     images = batching.stack_views(samples, stage.data.image_size, "cuda")
     emb, m2 = batching.spliced_prompt(params, stage, tok.convert_tokens_to_ids("<image>"), images, ids, mask)
-    B, S, _ = emb.shape
-    T = S + K
-    am = F.pad(m2.int(), (0, K))
-    pos = torch.clamp_min(torch.cumsum(m2.int(), -1) - 1, 0)
+    T = emb.shape[1] + K
     blk = torch.from_numpy(np.ascontiguousarray(tokens[:, :K])).cuda()
-    tpos = torch.arange(T, device="cuda")[None, None, :]
-    jpos = torch.arange(K, device="cuda")
-    block_mask = torch.where(tpos < S, am.bool()[:, None, :], (tpos - S) <= jpos[None, :, None]).int()
-
-    @contextlib.contextmanager
-    def attention(decode, verify):  # what qwen3's decode steps and verify blocks call
-        real = qwen3.gqa_decode_attention, qwen3.gqa_block_verify_attention
-        qwen3.gqa_decode_attention, qwen3.gqa_block_verify_attention = decode, verify
-        try:
-            yield
-        finally:
-            qwen3.gqa_decode_attention, qwen3.gqa_block_verify_attention = real
-
     held = []
-
-    def checked_verify(*a):  # the kernel's output, held to the plain version's on its inputs
-        got = da.gqa_block_verify_attention(*a)
-        held.append(agreement(got, da.gqa_block_verify_attention_plain(*a)))
-        return got
-
-    def verify_block(cache):
-        return qwen3.forward(params["text"], cfg, input_ids=blk, attention_mask=block_mask,
-                             positions=pos[:, -1:] + 1 + jpos[None, :], cache=cache,
-                             cache_offset=torch.full((B,), S, device="cuda"), decode_frontier=True)[0]
-
-    with torch.inference_mode():
-        cache0 = qwen3.init_cache(cfg, B, T, device="cuda")
-        qwen3.forward(params["text"], cfg, inputs_embeds=emb, attention_mask=am, positions=pos, cache=cache0,
-                      prefill_padding="left", last_logit_only=True)
-
-        def fresh():
-            return {n: t.clone() for n, t in cache0.items()}
-
-        with attention(da.gqa_decode_attention_plain, da.gqa_block_verify_attention_plain):
-            cache, step_mask, steps = fresh(), am.clone(), []
-            for j in range(K - 1):
-                step_mask[:, S + j] = 1
-                logits, cache = qwen3.forward(params["text"], cfg, input_ids=blk[:, j:j + 1],
-                                              attention_mask=step_mask, positions=pos[:, -1:] + 1 + j, cache=cache,
-                                              cache_offset=S + j, decode_frontier=True)
-                steps.append(logits[:, 0])
-            verify_plain = verify_block(fresh())
-        with attention(da.gqa_decode_attention, checked_verify):
-            verify_kernel = verify_block(fresh())
-    step_logits = torch.stack(steps, dim=1)  # [B, K-1, V]: after tokens 0..K-2
-
-    def rel(a, b):
-        return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
-
-    worst = max(held, key=lambda h: h["rel_rms"])
+    with qwen3_routed(**plain_attention()):
+        steps = teacher_forced(params["text"], cfg, emb, m2, blk[:, :K - 1], T, block=False)
+        verify_plain = teacher_forced(params["text"], cfg, emb, m2, blk, T, block=True)
+    with qwen3_routed(**held_kernels(held, ("gqa_block_verify_attention",))):
+        verify_kernel = teacher_forced(params["text"], cfg, emb, m2, blk, T, block=True)
+    worst = max((h for _, _, h in held), key=lambda h: h["rel_rms"])
     print(f"ARKit path: verify block with the kernel vs with the plain version: logits differ by up to "
-          f"{rel(verify_kernel, verify_plain):.3e} of max|logit|; each of {len(held)} kernel calls held to the "
+          f"{_rel(verify_kernel, verify_plain):.3e} of max|logit|; each of {len(held)} kernel calls held to the "
           f"plain version on its inputs, worst {json.dumps(worst)}", flush=True)
-    if len(held) != cfg.num_layers or not all(h["ok"] for h in held):
+    if len(held) != cfg.num_layers or not all(h["ok"] for _, _, h in held):
         raise AssertionError("ARKit path: the block-verify kernel disagrees with its plain version in the verify block")
-    return rel(verify_plain[:, :K - 1], step_logits)
+    return _rel(verify_plain[:, :K - 1], steps)
 
 
 def _parses_to_schema(text: str) -> bool:
@@ -2107,30 +2757,38 @@ def missed_launches(launched: dict, kernel_names: list) -> dict:
     return {f: (seen.get(f, 0), n) for f, n in launched.items() if seen.get(f, 0) < n}
 
 
-def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None):
+def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None, host_ops: bool = True,
+                      tries: int = 3):
     """One more run of a main-path phase under torch.profiler: device time by
     kernel family and by kernel. The profiler slows the host, so the idle
     share is also given against ``unprofiled_s``, the same run's wall time
     without it. With ``range_family``, the kernels launched by ops inside the
     ``record_function`` range of that name count to that family. A session
     that saw fewer kernels of one of our families than its wrappers launched
-    is run again, twice at most; each family line gives its launches, and if
-    none of the three sessions saw them all, the last one's lines say how
-    many it saw ("short"): their figures miss those launches' time."""
+    is run again, ``tries`` sessions in all; each family line gives its
+    launches, and if none of the sessions saw them all, the last one's lines say how
+    many it saw ("short"): their figures miss those launches' time. With
+    ``host_ops`` False only the device is traced (no host ops: less host
+    overhead for a host-bound run; no ``range_family``).
+    Returns those of the last session, {family: (seen, launched)} (empty
+    when it saw every launch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(tries):
         before = our_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
             run()
             torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
+            wall_us = (time.perf_counter() - t) * 1e6
+            profiler_pad()
         launched = {f: n - before[f] for f, n in our_launches().items() if n > before[f]}
         kernels = [e for e in prof.events()  # a range's span on the device is no kernel
-                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+                   and PAD_KERNEL not in e.name]
         missed = missed_launches(launched, [e.name for e in kernels])
         if not missed:
             break
@@ -2149,7 +2807,7 @@ def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None):
     busy = sum(by_name.values())
     if busy <= 0:
         print(f"profile {label}: the profiler saw no device time", flush=True)
-        return
+        return missed or {"device time": (0, 1)}
 
     fam = {}
     for n, us in by_name.items():
@@ -2175,6 +2833,7 @@ def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None):
         d = sorted(each[n], reverse=True)
         print(f"profile {label} flash_fwd instance {n[n.find('flash_fwd_kernel'):].split('(')[0]}: {len(d)} launches, "
               f"{sum(d) / 1e3:.1f} ms; each (ms) {[round(x / 1e3, 3) for x in d]}", flush=True)
+    return missed
 
 
 def _in_range(event, name: str) -> bool:
@@ -2290,6 +2949,7 @@ def main(argv=None) -> int:
     reference_check(args.seed)
     reference_check_w8(args.seed)
     reference_check_speculative(args.seed)
+    reference_check_slots(args.seed)
     reference_check_train(args.seed)
     phase_done("card-vs-CPU checks")
     runs = main_path(args)
@@ -2298,6 +2958,8 @@ def main(argv=None) -> int:
     phase_done("W8 bench path")
     arkit_plain, arkit_spec = arkit_path(args)
     phase_done("ARKit path")
+    serve = serve_path(args, smi)
+    phase_done("serving path")
     train = train_path(args)
     phase_done("training path")
 
@@ -2307,22 +2969,27 @@ def main(argv=None) -> int:
         dict(name="flash_fwd", route="cuda", source=FLASH_SOURCE,
              replaces=FLASH_REPLACES, launches=runs[None][0], **f, lse_shape=lse["shape"],
              lse_ms=lse["ms"], lse_library_ms=lse["library_ms"], lse_max_abs_err=lse["lse_max_abs_err"],
-             training_launches=train["counts"]["flash_fwd"]),
+             training_launches=train["counts"]["flash_fwd"], serve_launches=serve["slots"]["flash_fwd"]),
         dict(name="decode_attention", route="cuda", source=ATTENTION_SOURCE, replaces=DECODE_REPLACES,
              launches=runs[None][1], **d, w8_shape=d8["shape"], w8_launches=w8_counts["decode_attention"],
              w8_ms=d8["ms"], w8_plain_ms=d8["plain_ms"], w8_library_ms=d8["library_ms"], w8_library=d8["library"],
-             w8_bound_ms=d8["bound_ms"], w8_max_abs_err=d8["max_abs_err"]),
+             w8_bound_ms=d8["bound_ms"], w8_max_abs_err=d8["max_abs_err"],
+             serve_launches=serve["slots"]["decode_attention"]),
         dict(name="block_verify_attention", route="cuda", source=ATTENTION_SOURCE, replaces=VERIFY_REPLACES,
-             launches=arkit_spec["block_verify_attention"], **verify["bf16"]),
-    ] + [dict(name=n, route="cuda", source=W8_SOURCE, replaces=W8_REPLACES[n], launches=w8_counts[n], **w8[n])
-         for n in W8_REPLACES] + [
+             launches=arkit_spec["block_verify_attention"], **verify["bf16"],
+             serve_launches=serve["spec"]["block_verify_attention"]),
+    ] + [dict(name=n, route="cuda", source=W8_SOURCE, replaces=W8_REPLACES[n], launches=w8_counts[n], **w8[n],
+              serve_launches=serve["slots"][n]) for n in W8_REPLACES] + [
         dict(name=n, route="cuda", source=BWD_SOURCE, replaces=BWD_REPLACES[n], launches=train["counts"][n],
-             **bwd["vggt_global"][n]) for n in BWD_REPLACES]
+             **bwd["vggt_global"][n], serve_launches=serve["slots"][n]) for n in BWD_REPLACES]
     for kr in kernels:
         not_below_bound(kr["name"], kr["ms"], kr["bound_ms"])
     not_below_bound("decode_attention (W8 shape)", d8["ms"], d8["bound_ms"])
     print(f"int8-cache run launches: flash {runs['int8'][0]}, decode {runs['int8'][1]}", flush=True)
     print(f"ARKit plain constrained run launches: {json.dumps(arkit_plain)}", flush=True)
+    print(f"serving run launches: slots {json.dumps(serve['slots'])}; speculative {json.dumps(serve['spec'])}; "
+          f"batch {json.dumps(serve['batch'])}; after a prefixed admission: slots {json.dumps(serve['slots_prefix'])}, "
+          f"speculative {json.dumps(serve['spec_prefix'])}", flush=True)
     print(f"training run (freeze_vision false, {2 * TRAIN_GRAD_ACCUM} micro steps) launches: "
           f"{json.dumps(train['counts'])}; a micro step: {train['per_step']}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s, by phase {json.dumps(phases)}", flush=True)

@@ -186,19 +186,34 @@ def test_engine_matches_jax_generate(jax_flash_prefill):
 @pytest.mark.parametrize("call", ["chunk_at_offset", "one_token_undeclared", "two_token_decode",
                                   "per_row_block_without_query_mask"])
 def test_qwen3_cached_calls_off_the_path_raise(call):
-    """A cached call is a prefill, a one-token decode step or a per-row
-    verify block with a [B, S, T] mask; anything else (a chunked prefill, a
-    block at one offset for all rows or without per-query masks) raises."""
-    _, pcfg, _, pp = _qwen_setup(7)
+    """Cached calls off the kernels' path: a chunk at an offset (the chunked
+    prefill), a one-token step that declares no frontier and a two-token
+    block at one offset for all rows take plain attention over the cache,
+    and their logits and written cache slots agree with JAX's fallthrough
+    (1e-4); a per-row block without per-query masks still raises."""
+    jcfg, pcfg, jp, pp = _qwen_setup(7)
     B, S = 2, 6
-    ids = torch.from_numpy(np.random.default_rng(7).integers(0, pcfg.vocab_size, (B, S)).astype(np.int32))
+    ids_np = np.random.default_rng(7).integers(0, pcfg.vocab_size, (B, S)).astype(np.int32)
+    ids = torch.from_numpy(ids_np)
     cache = pqwen3.init_cache(pcfg, B, S + 2, dtype="float32")
     pqwen3.forward(pp, pcfg, input_ids=ids, cache=cache, prefill_padding="left")
+    jcache = jqwen3.init_cache(jcfg, B, S + 2, dtype="float32")
+    _, jcache = jqwen3.forward(jp, jcfg, input_ids=jnp.asarray(ids_np), cache=jcache, prefill_padding="left")
     mask = torch.ones(B, S + 2, dtype=torch.int32)
     kw = {"chunk_at_offset": dict(input_ids=ids[:, :2], cache_offset=S),
           "one_token_undeclared": dict(input_ids=ids[:, :1], cache_offset=S),
           "two_token_decode": dict(input_ids=ids[:, :2], cache_offset=S, decode_frontier=True),
           "per_row_block_without_query_mask": dict(input_ids=ids[:, :2], cache_offset=torch.tensor([S, S - 1]),
                                                    decode_frontier=True)}[call]
-    with pytest.raises(NotImplementedError, match="serving extras"):
-        pqwen3.forward(pp, pcfg, attention_mask=mask, cache=cache, **kw)
+    if call == "per_row_block_without_query_mask":
+        with pytest.raises(ValueError, match="per-query mask"):
+            pqwen3.forward(pp, pcfg, attention_mask=mask, cache=cache, **kw)
+        return
+    logits, cache = pqwen3.forward(pp, pcfg, attention_mask=mask, cache=cache, **kw)
+    jkw = dict(kw, input_ids=jnp.asarray(kw["input_ids"].numpy()))
+    jlogits, jcache = jqwen3.forward(jp, jcfg, attention_mask=jnp.asarray(mask.numpy()), cache=jcache, **jkw)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=TOL, rtol=0)
+    n = kw["input_ids"].shape[1]
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache[name][:, :, :, S:S + n].numpy(),
+                                   np.asarray(jcache[name])[:, :, :, S:S + n], atol=TOL, rtol=0)

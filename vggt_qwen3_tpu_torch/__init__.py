@@ -14,8 +14,12 @@ and function names so each counterpart is easy to find:
   version beside its wrapper.
 - ``inference/``: KV-cache engine (constraint FSM, per-row budgets),
   prompt-lookup speculative decoding, the action-JSON constraint tables,
-  batching, and the QA and ARKit CLIs (``python -m
-  vggt_qwen3_tpu_torch.inference.qa`` / ``.arkit``).
+  batching, the slot engine (continuous batching), and the QA and ARKit CLIs
+  and the HTTP server (``python -m vggt_qwen3_tpu_torch.inference.qa`` /
+  ``.arkit`` / ``.server``).
+- ``tools/``: ``convert_reference_ckpt`` (a reference or HF checkpoint →
+  ``step_<n>/params.pt``); the per-component converters live beside their
+  models (``models/convert_qwen3.py``, ``convert_torch_state_dict``).
 - ``train/``  : the SFT trainer (optax's AdamW, clip and accumulation in
   plain torch), losses, ``torch.save`` checkpoints and the CLI (``python -m
   vggt_qwen3_tpu_torch.train.sft``); ``data/`` holds the collator and loader.

@@ -20,7 +20,8 @@ of the logits is an argmax, so the prefill and each step go through
 token instead of the logits. Its tokens and lengths are those of the slow
 path.
 
-Not ported: prompt penalisation (the text-only ARKit path).
+Not ported: ``generate_text`` and prompt penalisation (the text-only
+path; ROADMAP queue 1 item 1, the next slice).
 """
 
 from __future__ import annotations
@@ -43,7 +44,9 @@ class GenerationConfig:
     pad_token_id: int = 0
     repetition_penalty: float = 1.0
     no_repeat_ngram: int = 0
-    # prompt ids in the penalty/ngram sets: the text-only path, not ported yet
+    # prompt ids in the penalty/ngram sets: the text-only path of JAX's
+    # generate_text, not ported yet (ROADMAP queue 1 item 1); every entry
+    # point of the port refuses it
     penalize_prompt: bool = False
     # KV cache storage: None → model dtype; "int8" → per-(token, head) int8
     kv_dtype: Optional[str] = None
@@ -65,7 +68,9 @@ def unpack_lengths(packed: np.ndarray, gen_cfg: GenerationConfig):
 
 def check_supported(gen_cfg: GenerationConfig) -> None:
     if gen_cfg.penalize_prompt:
-        raise NotImplementedError("prompt penalisation (text-only ARKit path) is not ported yet (ROADMAP)")
+        raise NotImplementedError(
+            "prompt penalisation (penalize_prompt, the text-only path of generate_text) is not ported yet: "
+            "it is the next slice, ROADMAP queue 1 item 1")
 
 
 def row_budget(budget, B: int, N: int, device) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Helpers shared by the port's models: dtype names, seeded normal init,
-per-layer views of stacked weights and recompute for training."""
+per-layer views of stacked weights, recompute for training, and the leaf
+conversion of the checkpoint converters."""
 
 from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -46,3 +48,19 @@ def remat(fn, *args):
     if torch.is_grad_enabled() and any(needs(a) for a in args):
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def as_f32(x) -> torch.Tensor:
+    """A checkpoint leaf (a tensor of any dtype, dense or sparse, or a numpy
+    array) as a float32 CPU tensor, exactly: the converters go through f32,
+    as the JAX package's go through f32 numpy."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return (x.to_dense() if x.layout != torch.strided else x).float().cpu()
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def leaf(x, dt: torch.dtype, device) -> torch.Tensor:
+    """A float32 tensor cast to ``dt`` (round to nearest even, as numpy's
+    bf16 cast in the JAX converters) on ``device``, contiguous."""
+    return x.to(dt).contiguous().to(device)

@@ -3,7 +3,8 @@
 37-dim features — R(9) + t(3) + K(9) + depth_hist(16) — through
 ``Linear(37→h) → SiLU → Linear(h→h)``; the per-view features are mean-pooled
 over the views and the single embedding is broadcast to ``geom_tokens``
-positions. Missing keys zero-fill.
+positions. Missing keys zero-fill. :func:`convert_torch_state_dict` maps
+the reference ``geom_head`` (``nn.Sequential``, linears 0 and 2).
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ from typing import Dict, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
-from .common import normal, torch_dtype
+from .. import resolve_device
+from .common import as_f32, leaf, normal, torch_dtype
 
 Params = Dict[str, torch.Tensor]
 
@@ -58,3 +60,16 @@ def apply(params: Params, geom: Optional[Mapping[str, torch.Tensor]], geom_token
     h = F.silu(pooled @ params["w1"].to(dt) + params["b1"].to(dt))
     h = h @ params["w2"].to(dt) + params["b2"].to(dt)
     return h[:, None, :].expand(h.shape[0], geom_tokens, h.shape[-1])
+
+
+def convert_torch_state_dict(sd, dtype: str = "float32", device="cuda") -> Params:
+    """The reference ``geom_head`` state dict → this layout on ``device``
+    (linears transposed to [in, out], through float32, cast to ``dtype``)."""
+    device = resolve_device(device)
+    dt = torch_dtype(dtype)
+    return {
+        "w1": leaf(as_f32(sd["0.weight"]).T, dt, device),
+        "b1": leaf(as_f32(sd["0.bias"]), dt, device),
+        "w2": leaf(as_f32(sd["2.weight"]).T, dt, device),
+        "b2": leaf(as_f32(sd["2.bias"]), dt, device),
+    }

@@ -17,6 +17,9 @@ values scaled by ``1/(1 − rate)``). The Perceiver is not recomputed under
 ``torch.utils.checkpoint`` (nor is it checkpointed in JAX): a recompute
 restores the global RNG, not an explicit generator, so it would draw other
 masks.
+
+:func:`convert_torch_state_dict` maps the reference ``PerceiverProjector``'s
+state dict into this layout, as the JAX module's converter does.
 """
 
 from __future__ import annotations
@@ -26,10 +29,11 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from ..config import PerceiverConfig
 from ..ops.attention import mha
 from ..ops.norms import layer_norm
-from .common import layer_views, torch_dtype
+from .common import as_f32, layer_views, leaf, torch_dtype
 
 Params = Dict[str, object]
 
@@ -108,3 +112,42 @@ def apply(params: Params, cfg: PerceiverConfig, tokens: torch.Tensor, *,
         h = drop(F.gelu(lat @ lp["mlp_w1"] + lp["mlp_b1"])) @ lp["mlp_w2"] + lp["mlp_b2"]
         lat = layer_norm(lat + drop(h), lp["ln2_w"], lp["ln2_b"], eps)
     return lat @ params["out_proj_w"] + params["out_proj_b"]
+
+
+def convert_torch_state_dict(sd, cfg: PerceiverConfig, dtype: str = "float32", device="cuda") -> Params:
+    """A reference ``PerceiverProjector.state_dict()`` → this layout, on
+    ``device``. ``nn.MultiheadAttention`` packs Q, K and V as
+    ``in_proj_weight`` [3D, D]: split and transposed into [D, D] matrices;
+    every linear is transposed to [in, out]. Leaves go through float32 and
+    are cast to ``dtype``."""
+    device = resolve_device(device)
+    dt = torch_dtype(dtype)
+    D, L = cfg.latent_dim, cfg.num_layers
+    stacked = {k: [] for k in (
+        "wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo",
+        "ln1_w", "ln1_b", "ln2_w", "ln2_b", "mlp_w1", "mlp_b1", "mlp_w2", "mlp_b2",
+    )}
+    for i in range(L):
+        p = f"layers.{i}"
+        w = as_f32(sd[f"{p}.self_attn.in_proj_weight"])  # [3D, D]
+        b = as_f32(sd[f"{p}.self_attn.in_proj_bias"])
+        for j, n in enumerate("qkv"):
+            stacked[f"w{n}"].append(w[j * D:(j + 1) * D].T)
+            stacked[f"b{n}"].append(b[j * D:(j + 1) * D])
+        stacked["wo"].append(as_f32(sd[f"{p}.self_attn.out_proj.weight"]).T)
+        stacked["bo"].append(as_f32(sd[f"{p}.self_attn.out_proj.bias"]))
+        for ours, theirs in (("ln1", "norm1"), ("ln2", "norm2")):
+            stacked[f"{ours}_w"].append(as_f32(sd[f"{p}.{theirs}.weight"]))
+            stacked[f"{ours}_b"].append(as_f32(sd[f"{p}.{theirs}.bias"]))
+        for ours, theirs in (("mlp_w1", "mlp.0.weight"), ("mlp_w2", "mlp.3.weight")):
+            stacked[ours].append(as_f32(sd[f"{p}.{theirs}"]).T)
+        stacked["mlp_b1"].append(as_f32(sd[f"{p}.mlp.0.bias"]))
+        stacked["mlp_b2"].append(as_f32(sd[f"{p}.mlp.3.bias"]))
+    return {
+        "latents": leaf(as_f32(sd["latents"]), dt, device),
+        "in_proj_w": leaf(as_f32(sd["in_proj.weight"]).T, dt, device),
+        "in_proj_b": leaf(as_f32(sd["in_proj.bias"]), dt, device),
+        "layers": {k: leaf(torch.stack(v), dt, device) for k, v in stacked.items()},
+        "out_proj_w": leaf(as_f32(sd["out_proj.weight"]).T, dt, device),
+        "out_proj_b": leaf(as_f32(sd["out_proj.bias"]), dt, device),
+    }

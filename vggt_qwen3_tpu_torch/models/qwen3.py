@@ -15,8 +15,14 @@ Attention on the cached paths:
 - speculative block verify (``decode_frontier``, [B] offsets, S > 1, a
   [B, S, T] per-query mask): the block-verify kernel, query j seeing its
   row's frontier plus j slots of the block;
-- any other cached call (a chunked prefill, plain attention over the cache)
-  raises ``NotImplementedError``.
+- any other cached call — a chunked prefill over a stashed prefix (S > 1 at
+  ``cache_offset = P``), a decode step or verify block over holed rows
+  (``decode_frontier`` False: the slot engine after a prefixed admission) —
+  plain ``mha`` / ``mha_quantized_kv`` over layer ``li`` of the cache under
+  the given mask (with the causal mask at an int offset, the mask alone at
+  [B] offsets), as the JAX module's fallthrough. The frontier kernels read
+  one contiguous run a row, so they never see a call that did not declare
+  ``decode_frontier``.
 
 ``cache_offset`` is an int, or a [B] tensor of per-row offsets (every
 sequence at its own depth, as speculative decoding leaves them): the S new
@@ -28,10 +34,17 @@ The cache is updated **in place** (the JAX module returns an updated copy);
 W8 serving weights (:func:`quantize_params`): every layer projection is a
 ``{"w8", "scale"}`` dict and the tied embedding an int8 row quantization.
 Projections go through ``ops.quant.linear`` (dequantize, then one matmul);
-on a decode step over W8 layers, the three fused W8 kernels of
-``ops/decode_matmul.py`` (QKV, WO, MLP) run instead, over the stacked weights
-at layer ``li``. The int8 LM head scales its f32 logits after the dot;
-:func:`greedy_tokens` reaches the fused head-argmax kernel.
+on a decode step (S = 1) or verify block ([B] offsets, S > 1) over W8
+layers, the three fused W8 kernels of ``ops/decode_matmul.py`` (QKV, WO,
+MLP) run instead, over the stacked weights at layer ``li``, whichever
+attention runs: over holed rows too, where the JAX module gates them on its
+frontier kernels and dequantizes. Both compute each projection as f32 sums
+of the products with the dequantized weight, rounded once to the activation
+dtype; they differ only in the order of the f32 sums (bit-identical on the
+CPU, where the fused wrappers run ``quant.linear``). Prefills, chunked
+ones included, dequantize and multiply, as in JAX. The int8 LM head scales
+its f32 logits after the dot; :func:`greedy_tokens` reaches the fused
+head-argmax kernel.
 
 LoRA (:func:`add_lora`): low-rank adapters ``lora[key] = {A, B, s}`` beside
 the stacked projections; every projection with an adapter adds
@@ -55,7 +68,7 @@ import torch.nn.functional as F
 
 from ..config import Qwen3Config
 from ..ops import quant
-from ..ops.attention import combine_masks, make_causal_mask, mha
+from ..ops.attention import combine_masks, make_causal_mask, mha, mha_quantized_kv
 from ..ops.decode_attention import gqa_block_verify_attention, gqa_decode_attention
 from ..ops.decode_matmul import fused_head_argmax, fused_linear_w8, fused_mlp_w8, fused_qkv_w8
 from ..ops.flash_attention import flash_attention
@@ -326,13 +339,9 @@ def forward_hidden(
     use_flash = prefill_padding is not None
     use_decode = decode_frontier and S == 1 and attention_mask is not None and attention_mask.ndim == 2
     use_verify = decode_frontier and per_row and S > 1 and attention_mask.ndim == 3
-    if not (use_flash or use_decode or use_verify):
-        raise NotImplementedError(
-            "a cached call is a prefill (prefill_padding), a one-token decode step "
-            "(decode_frontier with a [B, T] mask) or a speculative verify block "
-            "(decode_frontier, [B] offsets and a [B, S, T] mask); chunked prefill and "
-            "plain attention over the cache are not ported (ROADMAP: serving extras)"
-        )
+    if per_row and S > 1 and attention_mask.ndim != 3:
+        raise ValueError("a per-row block (S > 1 at [B] offsets) needs a [B, S, T] per-query mask")
+    mask = None
     if use_flash:
         if per_row or cache_offset != 0:
             raise ValueError("prefill_padding requires cache_offset == 0")
@@ -346,15 +355,24 @@ def forward_hidden(
         # causal clamp: a sloppier caller's mask must not see the future
         f_end = f_start + am.sum(-1).int()
         f_end = torch.minimum(f_end, cache_offset + 1) if per_row else f_end.clamp_max(cache_offset + 1)
-    else:  # query 0's row gives the block's frontier; query j sees j slots more
+    elif use_verify:  # query 0's row gives the block's frontier; query j sees j slots more
         am0 = attention_mask[:, 0].int()
         f_start = torch.argmax(am0, dim=-1).int()
         f_off = torch.minimum(f_start + am0.sum(-1).int() - 1, cache_offset)
+    else:  # plain attention over the cache: the key mask, and the causal one at an int offset
+        T = cache["k"].shape[3]
+        pad = None
+        if attention_mask is not None:
+            pad = (attention_mask[:, None] if attention_mask.ndim == 3 else attention_mask[:, None, None]).bool()
+        mask = pad if per_row else combine_masks(
+            make_causal_mask(S, T, q_offset=cache_offset, device=dev)[None, None], pad)
     quantized = "ks" in cache
     write_at = _row_write_plan(cache_offset, S, cache["k"].shape[3]) if per_row else cache_offset
-    # a decode step or verify block over W8 layers runs the fused W8 kernels
-    # (the prefill, like the JAX module's, dequantizes and multiplies)
-    fused = _fused_groups(layers) if use_decode or use_verify else frozenset()
+    # a decode step or verify block over W8 layers runs the fused W8 kernels,
+    # over holed rows too (a prefill, like the JAX module's, dequantizes and
+    # multiplies)
+    step = (S == 1 and not use_flash) or (per_row and S > 1)
+    fused = _fused_groups(layers) if step else frozenset()
 
     for li, lp in enumerate(layer_views(layers, L)):
         q, k, v = _layer_qkv(cfg, h, lp, cos, sin, layers, li, fused)
@@ -373,11 +391,16 @@ def forward_hidden(
                 q[:, 0], cache["k"], cache["v"], li, f_start, f_end,
                 cache.get("ks"), cache.get("vs"),
             )[:, None]
-        else:
+        elif use_verify:
             attn = gqa_block_verify_attention(
                 q.contiguous(), cache["k"], cache["v"], li, f_start, f_off,
                 cache.get("ks"), cache.get("vs"),
             )
+        elif quantized:
+            attn = mha_quantized_kv(q, cache["k"][li], cache["ks"][li], cache["v"][li], cache["vs"][li],
+                                    mask=mask, kv_heads_major=True)
+        else:
+            attn = mha(q, cache["k"][li], cache["v"][li], mask=mask, kv_heads_major=True)
         h = _layer_post_attn(cfg, h, lp, attn, layers, li, fused)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
 
@@ -413,7 +436,7 @@ def quantize_params(params: Params, *, embed: bool = True, donate: bool = True, 
     caller's tree as it was.
     """
     if mode != "w8":
-        raise NotImplementedError(f"quantize mode {mode!r} is not ported yet (ROADMAP: W8A8/W4 modes)")
+        raise NotImplementedError(f"quantize mode {mode!r} is not ported yet (ROADMAP queue 1 item 4: W8A8/W4 modes)")
     out = params if donate else dict(params)
     layers = params["layers"] if donate else dict(params["layers"])
     out["layers"] = layers

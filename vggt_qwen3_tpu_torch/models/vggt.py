@@ -12,6 +12,12 @@ global outputs are concatenated → [B, S, T, 2E].
 
 Every block's attention is ``ops.flash_attention.flash_attention``: the
 flash kernel on the card (D = 64 at VGGT-1B), its plain version on the CPU.
+The four block projections go through ``ops.quant.linear``: dense weights,
+or the W8 ``{"w8", "scale"}`` dicts of ``vlm.quantize_vision`` (dequantize,
+then one matmul — plain XLA in JAX).
+
+:func:`convert_torch_state_dict` maps a public VGGT checkpoint
+(``aggregator.*`` keys) into this layout, as the JAX module's converter does.
 
 Training (grad enabled, the tower not frozen): each DINOv2 block and each
 frame/global pair runs under ``torch.utils.checkpoint`` (non-reentrant), the
@@ -30,11 +36,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from ..config import VGGTConfig
+from ..ops import quant
 from ..ops.flash_attention import flash_attention
 from ..ops.norms import layer_norm
 from ..ops.rope2d import apply_rope2d, rope2d_cos_sin
-from .common import layer_views, normal, remat, torch_dtype
+from .common import as_f32, layer_views, leaf, normal, remat, torch_dtype
 
 Params = Dict[str, object]
 
@@ -95,16 +103,16 @@ def _vit_block(x, bp, num_heads, eps, *, cos=None, sin=None, rot_mask=None):
     B, T, E = x.shape
     hd = E // num_heads
     h = layer_norm(x, bp["ln1_w"], bp["ln1_b"], eps)
-    qkv = h @ bp["qkv_w"] + bp["qkv_b"]
+    qkv = quant.linear(h, bp["qkv_w"]) + bp["qkv_b"]
     q, k, v = (t.reshape(B, T, num_heads, hd) for t in qkv.chunk(3, dim=-1))
     if cos is not None:
         q = apply_rope2d(q, cos, sin, rot_mask)
         k = apply_rope2d(k, cos, sin, rot_mask)
     attn = flash_attention(q, k, v).reshape(B, T, E)
-    x = x + bp["ls1"] * (attn @ bp["proj_w"] + bp["proj_b"])
+    x = x + bp["ls1"] * (quant.linear(attn, bp["proj_w"]) + bp["proj_b"])
     h = layer_norm(x, bp["ln2_w"], bp["ln2_b"], eps)
-    h = F.gelu(h @ bp["mlp_w1"] + bp["mlp_b1"])  # exact erf GELU
-    return x + bp["ls2"] * (h @ bp["mlp_w2"] + bp["mlp_b2"])
+    h = F.gelu(quant.linear(h, bp["mlp_w1"]) + bp["mlp_b1"])  # exact erf GELU
+    return x + bp["ls2"] * (quant.linear(h, bp["mlp_w2"]) + bp["mlp_b2"])
 
 
 def _pair(x, fbp, gbp, B, S, T, E, num_heads, eps, cos_frame, sin_frame, cos_global, sin_global):
@@ -225,3 +233,60 @@ def aggregator(params: Params, cfg: VGGTConfig, images: torch.Tensor) -> Tuple[L
                               cos_global, sin_global)
     concat = torch.cat([frame_out, x], dim=-1)
     return [concat.reshape(B, S, T, 2 * E)], psi
+
+
+# torch block names of each stacked leaf; the four projections are [out, in]
+# there and [in, out] here
+_BLOCK_KEYS = {
+    "ln1_w": "norm1.weight", "ln1_b": "norm1.bias",
+    "qkv_w": "attn.qkv.weight", "qkv_b": "attn.qkv.bias",
+    "proj_w": "attn.proj.weight", "proj_b": "attn.proj.bias",
+    "ls1": "ls1.gamma",
+    "ln2_w": "norm2.weight", "ln2_b": "norm2.bias",
+    "mlp_w1": "mlp.fc1.weight", "mlp_b1": "mlp.fc1.bias",
+    "mlp_w2": "mlp.fc2.weight", "mlp_b2": "mlp.fc2.bias",
+    "ls2": "ls2.gamma",
+}
+_TRANSPOSED = {"qkv_w", "proj_w", "mlp_w1", "mlp_w2"}
+
+
+def convert_torch_state_dict(sd, cfg: VGGTConfig, dtype: Optional[str] = None, device="cuda") -> Params:
+    """Map a public VGGT checkpoint into this layout, on ``device``.
+
+    Keys are looked up bare, under ``aggregator.`` and under ``model.``:
+    ``patch_embed.{patch_embed.proj, cls_token, register_tokens, pos_embed,
+    blocks.N.*, norm}`` (DINOv2) and ``{camera_token, register_token,
+    frame_blocks.N.*, global_blocks.N.*}``. Every leaf goes through float32
+    and is cast to ``dtype`` (default ``cfg.dtype``)."""
+    device = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+
+    def get(name: str) -> torch.Tensor:
+        for cand in (name, f"aggregator.{name}", f"model.{name}"):
+            if cand in sd:
+                return as_f32(sd[cand])
+        raise KeyError(name)
+
+    def blocks(prefix: str, L: int) -> Params:
+        return {ours: leaf(torch.stack([get(f"{prefix}.{i}.{theirs}").T if ours in _TRANSPOSED
+                                        else get(f"{prefix}.{i}.{theirs}") for i in range(L)]), dt, device)
+                for ours, theirs in _BLOCK_KEYS.items()}
+
+    E, R = cfg.embed_dim, cfg.num_register_tokens
+    proj_w = get("patch_embed.patch_embed.proj.weight")  # [E, 3, P, P]
+    return {
+        "patch": {
+            "proj_w": leaf(proj_w.permute(2, 3, 1, 0), dt, device),  # [P, P, 3, E]
+            "proj_b": leaf(get("patch_embed.patch_embed.proj.bias"), dt, device),
+            "cls": leaf(get("patch_embed.cls_token").reshape(E), dt, device),
+            "reg": leaf(get("patch_embed.register_tokens").reshape(R, E), dt, device),
+            "pos": leaf(get("patch_embed.pos_embed").reshape(-1, E), dt, device),
+            "blocks": blocks("patch_embed.blocks", cfg.patch_depth),
+            "norm_w": leaf(get("patch_embed.norm.weight"), dt, device),
+            "norm_b": leaf(get("patch_embed.norm.bias"), dt, device),
+        },
+        "camera_token": leaf(get("camera_token").reshape(2, 1, E), dt, device),
+        "register_token": leaf(get("register_token").reshape(2, R, E), dt, device),
+        "frame_blocks": blocks("frame_blocks", cfg.num_layers),
+        "global_blocks": blocks("global_blocks", cfg.num_layers),
+    }

@@ -19,8 +19,10 @@ training splice that overwrites embeddings in place, and the training loss.
 - :func:`train_forward` — geom tokens (when given) before the visual tokens,
   spliced over the first ``<image>``, the cache-free Qwen3 forward, the
   chunked loss.
+- :func:`quantize_vision` — W8 serving weights for the frozen tower's block
+  projections.
 
-Not ported: vision quantisation (``quantize_vision``).
+Not ported: ``quantize_vision(mode="w8a8")`` (int8 activations).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from ..config import VLMConfig
+from ..ops import quant
 from . import geom as geom_mod
 from . import perceiver, qwen3, vggt
 from .common import remat
@@ -51,6 +54,39 @@ def init_params(gen: torch.Generator, cfg: VLMConfig, dtype: Optional[str] = Non
         params["vision"] = vggt.init_params(gen, cfg.vision, dtype=dt)
     params["geom"] = geom_mod.init_params(gen, cfg.text.hidden_size, dtype=dt)
     return params
+
+
+VISION_BLOCK_QUANT_KEYS = ("qkv_w", "proj_w", "mlp_w1", "mlp_w2")
+
+
+def quantize_vision(params: Params, *, mode: str = "w8", donate: bool = True) -> Params:
+    """W8 serving weights for the frozen VGGT tower: the four projections of
+    every block (DINOv2, frame, global) become per-output-channel int8 dicts
+    (``quant.quantize_per_channel``, bit-identical to the JAX quantizer);
+    ``models/vggt.py`` multiplies them through ``quant.linear``. The patch
+    embedding, norms, LayerScale, tokens and the Perceiver and geom heads
+    stay as they are. A tree without a tower comes back unchanged.
+
+    ``donate``: the caller's block dicts are updated in place, so each dense
+    matrix is released once its int8 copy exists; ``donate=False`` leaves
+    them as they were. ``mode="w8a8"`` (int8 activations) is not ported."""
+    if mode != "w8":
+        raise NotImplementedError(
+            f"quantize_vision mode {mode!r} is not ported yet (ROADMAP queue 1 item 4: W8A8/W4 modes)")
+    if "vision" not in params:
+        return params
+
+    def quantize_blocks(blocks):
+        out = blocks if donate else dict(blocks)
+        for key in VISION_BLOCK_QUANT_KEYS:
+            out[key] = quant.quantize_per_channel(blocks[key])
+        return out
+
+    vis = dict(params["vision"])
+    vis["patch"] = dict(vis["patch"], blocks=quantize_blocks(vis["patch"]["blocks"]))
+    vis["frame_blocks"] = quantize_blocks(vis["frame_blocks"])
+    vis["global_blocks"] = quantize_blocks(vis["global_blocks"])
+    return dict(params, vision=vis)
 
 
 def mock_aggregator(cfg: VLMConfig, images: torch.Tensor) -> Tuple[list, int]:

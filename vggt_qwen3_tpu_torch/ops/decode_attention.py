@@ -165,7 +165,8 @@ def gqa_decode_attention(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernel_build.check(rc, "decode_attention")
-    launches += 1
+    with kernel_build.counter_lock:
+        launches += 1
     return out
 
 
@@ -272,5 +273,6 @@ def gqa_block_verify_attention(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernel_build.check(rc, "block_verify_attention")
-    verify_launches += 1
+    with kernel_build.counter_lock:
+        verify_launches += 1
     return out

@@ -172,7 +172,8 @@ def fused_qkv_w8(x: torch.Tensor, wq: dict, wk: dict, wv: dict, li: int):
         return fused_qkv_w8_plain(x, wq, wk, wv, li)
     _check_x("fused_qkv_w8", x)
     out = tuple(_gemm("fused_qkv_w8", x, (wq, wk, wv), li))
-    launches["fused_qkv_w8"] += 1
+    with kernel_build.counter_lock:
+        launches["fused_qkv_w8"] += 1
     return out
 
 
@@ -182,7 +183,8 @@ def fused_linear_w8(x: torch.Tensor, w: dict, li: int) -> torch.Tensor:
         return fused_linear_w8_plain(x, w, li)
     _check_x("fused_linear_w8", x)
     (out,) = _gemm("fused_linear_w8", x, (w,), li)
-    launches["fused_linear_w8"] += 1
+    with kernel_build.counter_lock:
+        launches["fused_linear_w8"] += 1
     return out
 
 
@@ -215,7 +217,8 @@ def fused_mlp_w8(x: torch.Tensor, gate: dict, up: dict, down: dict, li: int) -> 
     if H % N_TILE:
         raise ValueError(f"{name} kernel takes N a multiple of {N_TILE} (the down projection's), got {H}")
     (out,) = _gemm(name, _swiglu(name, x, gate, up, li), (down,), li)
-    launches[name] += 1
+    with kernel_build.counter_lock:
+        launches[name] += 1
     return out
 
 
@@ -247,5 +250,6 @@ def fused_head_argmax(x: torch.Tensor, head: dict) -> Tuple[torch.Tensor, torch.
     mx = torch.empty((M,), dtype=torch.float32, device=x.device)
     kernel_build.check(_lib().head_argmax(x.data_ptr(), M, H, w8.data_ptr(), s.data_ptr(), V, pval.data_ptr(),
                                           pidx.data_ptr(), tok.data_ptr(), mx.data_ptr(), _stream(x)), name)
-    launches[name] += 1
+    with kernel_build.counter_lock:
+        launches[name] += 1
     return tok, mx

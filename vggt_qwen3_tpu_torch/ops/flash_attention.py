@@ -266,7 +266,8 @@ def flash_fwd_kernel(q, k, v, start, end, causal: bool, scale: float, with_lse: 
         float(scale), int(bool(causal)), _stream(q),
     )
     kernel_build.check(rc, "flash_fwd")
-    launches += 1
+    with kernel_build.counter_lock:
+        launches += 1
     return out, lse
 
 
@@ -292,12 +293,14 @@ def flash_bwd_kernels(q, k, v, start, end, lse, delta, d_out, causal: bool, scal
            lse_p.data_ptr(), delta.data_ptr(), start.data_ptr(), end.data_ptr())
     dq = torch.empty((B, S, NH, D), dtype=torch.bfloat16, device=q.device)
     kernel_build.check(_bwd_lib("flash_bwd_dq_bf16")(*ins, dq.data_ptr(), *common), "flash_bwd_dq")
-    dq_launches += 1
+    with kernel_build.counter_lock:
+        dq_launches += 1
     dk = torch.empty((B, T, NKV, D), dtype=torch.bfloat16, device=q.device)
     dv = torch.empty((B, T, NKV, D), dtype=torch.bfloat16, device=q.device)
     kernel_build.check(_bwd_lib("flash_bwd_dkv_bf16")(*ins, dk.data_ptr(), dv.data_ptr(), *common),
                        "flash_bwd_dkv")
-    dkv_launches += 1
+    with kernel_build.counter_lock:
+        dkv_launches += 1
     return dq, dk, dv
 
 

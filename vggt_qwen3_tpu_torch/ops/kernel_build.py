@@ -6,6 +6,12 @@ its own into ``build/lib<name>-<hash>.so`` (the hash is of the source, of the
 header rebuilds), loaded with ``ctypes``. Nothing here runs at import:
 the CPU tests import every module, and a build is reached only through a
 wrapper handed a CUDA tensor.
+
+Threads: the server splices a request's views on its HTTP handler's thread
+while the slot engine decodes on its own, so two threads can reach a first
+build at once. :func:`build` holds a lock around its work, so a source is
+compiled and loaded once. The wrappers' launch counters are incremented
+under :data:`counter_lock`, so no count is lost between threads.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
@@ -41,6 +48,9 @@ class KernelLibrary:
 
 
 _LIBS: Dict[str, KernelLibrary] = {}
+_BUILD_LOCK = threading.Lock()
+# held by every wrapper while it adds one to its launch counter
+counter_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -86,9 +96,16 @@ def build(names: Iterable[str], defines: Optional[Dict[str, int]] = None) -> Lis
 
     Raises with the compiler's output if a build fails."""
     names = list(names)
-    todo = [n for n in names if n not in _LIBS]
-    if not todo:  # every launch comes through here: no file system work once loaded
+    if all(n in _LIBS for n in names):  # every launch comes through here: no lock, no file system work
         return [_LIBS[n] for n in names]
+    with _BUILD_LOCK:  # another thread may have built them while this one waited
+        todo = [n for n in names if n not in _LIBS]
+        if todo:
+            _build(todo, defines)
+    return [_LIBS[n] for n in names]
+
+
+def _build(todo: List[str], defines: Optional[Dict[str, int]]) -> None:
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -114,7 +131,6 @@ def build(names: Iterable[str], defines: Optional[Dict[str, int]] = None) -> Lis
         kept = out.with_suffix(".log")
         log = logs[n] if n in procs else (kept.read_text() if kept.exists() else "")
         _LIBS[n] = KernelLibrary(n, out, seconds if n in procs else 0.0, log)
-    return [_LIBS[n] for n in names]
 
 
 def rebuild(name: str, defines: Dict[str, int]) -> KernelLibrary:

@@ -14,7 +14,7 @@ for the dict it dequantizes first, ``w8.to(x.dtype) * scale.to(x.dtype)``
 JAX, so here it is plain PyTorch on every device.
 
 Not ported: the W4 storage mode and the W8A8 (int8 activation) marker; a
-tree that holds either raises ``NotImplementedError`` (ROADMAP: W8A8/W4).
+tree that holds either raises ``NotImplementedError`` (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -46,9 +46,9 @@ def quantize_per_channel(w: torch.Tensor) -> Dict[str, torch.Tensor]:
 def require_w8(w) -> None:
     """Raise for a W4 or W8A8 dict: only plain W8 is ported."""
     if "w4p" in w:
-        raise NotImplementedError("W4 weights are not ported yet (ROADMAP: W8A8/W4 modes)")
+        raise NotImplementedError("W4 weights are not ported yet (ROADMAP queue 1 item 4: W8A8/W4 modes)")
     if A8_MARKER in w:
-        raise NotImplementedError("W8A8 (int8 activations) is not ported yet (ROADMAP: W8A8/W4 modes)")
+        raise NotImplementedError("W8A8 (int8 activations) is not ported yet (ROADMAP queue 1 item 4: W8A8/W4 modes)")
 
 
 def dequantize_as(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
