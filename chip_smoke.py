@@ -71,7 +71,9 @@ Run from the root of a checkout. It:
    the training step (bf16, the tower unfrozen, 4 micro
    steps at grad_accum 2: losses, grad norms, the vision gradients, the
    updates), then saves and restores that train state and checks the next
-   steps;
+   steps; and the W8A8 and W4 modes (``reference_check_quant``: the W8A8
+   int32 product and output bit for bit at 1, 8, 17 and 368 rows, W4
+   ``linear`` by ``utils.agreement``, penalised ``generate_text`` tokens);
 5. drives the QA path at full width — Qwen3-4B, VGGT-1B, the perceiver_small
    projector, 8 samples × 8 views × 448², random weights from ``--seed`` —
    through ``inference.qa.run_inference`` with the bf16 cache (the CLI
@@ -86,6 +88,17 @@ Run from the root of a checkout. It:
    memory, the launch counts of one timed ``generate`` (counters set to 0
    just before it), tokens identical on the repeat, and a profile by kernel
    family;
+6b. drives the W8A8 and W4 modes and text generation at full width
+   (``quant_path``): the bench with ``--quant w8a8`` (B=368, 128 steps, int8
+   cache; tok/s and the decode step beside the W8 bench's, launches of
+   kernels 1, 2 and 7 as the shapes give them and none of kernels 4–6,
+   tokens identical on the repeat, a 2-step profile); the quality gate
+   ``evals.baseline.evaluate`` on the placeholder test splits (one bf16 pass
+   against W8A8 and against W4 with an int8 cache, 32 new tokens, kernels
+   4–6 never launched in a quantized run); one QA batch with
+   ``vlm.quantize_vision("w8a8")`` beside ``"w8"`` (vision times); and
+   ``engine.generate_text`` with the prompt penalised (8 × 64 ids, 32
+   tokens, bf16, identical on the repeat);
 7. drives the ARKit action-JSON path at full width through
    ``inference.arkit.run_inference`` on the stage of
    ``configs/stage2_arkit.yaml`` (Qwen3-4B, VGGT-1B, perceiver_small; the 4
@@ -143,7 +156,8 @@ Run from the root of a checkout. It:
    everywhere; micro-step wall time, tokens/s, peak memory and a profile of
    one micro step with its update;
 10. prints the kernels line (with each kernel's launches on the serving
-   path, ``serve_launches``), the card line and, last, the ok line.
+   path, ``serve_launches``, and in one timed W8A8 bench ``generate``,
+   ``w8a8_bench_launches``), the card line and, last, the ok line.
 
 Any failure raises and the script exits non-zero. Without a CUDA device, or
 outside a checkout of the repo, it exits non-zero before printing a result.
@@ -1372,6 +1386,73 @@ def reference_check_w8(seed: int):
                              f"tokens {same}/{int(decisive.sum())})")
 
 
+def reference_check_quant(seed: int):
+    """The W8A8 and W4 modes at small width on the card against the CPU: the
+    W8A8 int32 product (``quant.int8_matmul``) and W8A8 ``linear`` bit for
+    bit on the same operands at 1, 8, 17 and 368 rows (Qwen3's QKV width:
+    the padded products of ≤ 16 rows among them), W4 ``linear`` held to its
+    CPU result by ``utils.agreement`` at 1, 8 and 17 rows, and penalised ``generate_text``
+    (penalty 1.1 over the prompt, int8 cache) with W8A8 and with W4 layers:
+    tokens equal on every row, or first different at a step where the CPU's
+    top-2 gap is under 2e-2·max|logit| (the bf16 noise of the W8 check)."""
+    import torch
+
+    from vggt_qwen3_tpu_torch.config import Qwen3Config
+    from vggt_qwen3_tpu_torch.inference import engine
+    from vggt_qwen3_tpu_torch.models import qwen3
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+    from vggt_qwen3_tpu_torch.ops import quant
+    from vggt_qwen3_tpu_torch.utils.agreement import agreement
+
+    gen = torch.Generator().manual_seed(seed)
+    K, N = 2560, 4096
+    w = torch.randn(K, N, generator=gen) * 0.02
+    wa = quant.mark_act_quant(quant.quantize_per_channel(w))
+    w4 = quant.quantize_per_group_w4(w)
+    wa_card, w4_card = _to_device(wa, "cuda"), _to_device(w4, "cuda")
+    for rows in (1, 8, 17, 368):
+        x = (torch.randn(rows, K, generator=gen) * torch.rand(rows, 1, generator=gen) * 4).bfloat16()
+        x8, _ = quant.quantize_activations(x)
+        ref_i, got_i = quant.int8_matmul(x8, wa["w8"]), quant.int8_matmul(x8.cuda(), wa_card["w8"]).cpu()
+        ref_y, got_y = quant.linear(x, wa), quant.linear(x.cuda(), wa_card).cpu()
+        if not (torch.equal(ref_i, got_i) and torch.equal(ref_y.view(torch.int16), got_y.view(torch.int16))):
+            raise AssertionError(f"W8A8 reference check: card and CPU differ at {rows} rows "
+                                 f"(int32 {int((ref_i != got_i).sum())}, bf16 {int((ref_y != got_y).sum())} elements)")
+        w4_note = ""
+        if rows <= 17:  # W4 at decode rows (a bf16 CPU product of 368 rows takes too long here)
+            held = agreement(quant.linear(x.cuda(), w4_card).float().cpu(), quant.linear(x, w4).float())
+            if not held["ok"]:
+                raise AssertionError(f"W4 reference check at {rows} rows: {held}")
+            w4_note = f"; W4 rel RMS {held['rel_rms']:.3g}"
+        print(f"reference check (W8A8 / W4 linear, [{rows}, {K}] x [{K}, {N}], card vs CPU): int32 product and W8A8 "
+              f"output bit-identical{w4_note}", flush=True)
+
+    cfg = Qwen3Config(vocab_size=1024, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      intermediate_size=512)
+    B, S, T = 16, 12, 8
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(1, cfg.vocab_size, (B, S)).astype(np.int32))
+    mask = torch.ones(B, S, dtype=torch.int32)
+    mask[0, :4] = 0
+    gcfg = engine.GenerationConfig(max_new_tokens=T, repetition_penalty=1.1, penalize_prompt=True, kv_dtype="int8")
+    for mode in ("w8a8", "w4"):
+        cpu_params = qwen3.quantize_params(qwen3.init_params(torch.Generator().manual_seed(seed), cfg), mode=mode)
+        (ref, _), gaps = constrained_gaps(engine, lambda: engine.generate_text(cpu_params, cfg, gcfg, input_ids=ids,
+                                                                               attention_mask=mask))
+        fa.launches = da.launches = 0
+        got, _ = engine.generate_text(_to_device(cpu_params, "cuda"), cfg, gcfg, input_ids=ids.cuda(),
+                                      attention_mask=mask.cuda())
+        torch.cuda.synchronize()
+        if (fa.launches, da.launches) != (cfg.num_layers, cfg.num_layers * T):
+            raise AssertionError(f"{mode} reference check: launches flash {fa.launches}, decode {da.launches}")
+        firsts = [(b, int(np.nonzero(got[b] != ref[b])[0][0])) for b in range(B) if (got[b] != ref[b]).any()]
+        at_flip = [float(gaps[t, b]) for b, t in firsts]
+        print(f"reference check ({mode}, penalised generate_text, int8 cache, card vs CPU): {B - len(firsts)}/{B} "
+              f"rows token-identical; CPU top-2 gap at each first flip {[round(g, 5) for g in at_flip]}", flush=True)
+        if len(firsts) == B or any(g >= 2e-2 for g in at_flip):
+            raise AssertionError(f"{mode} reference check: a row flips at a decisive step, or every row differs")
+
+
 def constrained_gaps(engine, run):
     """Run ``run()`` with the engine's selection recorded: per step, the top-2
     gap of the logits greedy takes its argmax over (grammar-masked
@@ -2008,10 +2089,228 @@ def w8_bench_path(args):
     if t0.shape != (B, N) or not np.array_equal(t0, t1) or not ((t0 >= 0) & (t0 < s.cfg.vocab_size)).all():
         raise AssertionError("W8 bench: the repeat run gave other tokens, or tokens out of range")
     gen_wall = min(res["walls_s"])
-    profile_breakdown("W8 generate", lambda: bench.timed_generate(s), unprofiled_s=gen_wall)
+    # device-only tracing: the host ops of 128 steps at B = 368 cost minutes of profiler bookkeeping
+    profile_breakdown("W8 generate", lambda: bench.timed_generate(s), unprofiled_s=gen_wall, host_ops=False)
     del s
     torch.cuda.empty_cache()
     return counts, res
+
+
+QUANT_GATE_SPLITS = ("sqa3d", "scanqa", "arkit")  # evals.baseline's placeholder test splits
+
+
+def quant_path(args, w8_res: dict):
+    """The W8A8 and W4 modes and penalised text generation at full width:
+
+    (a) the port's bench in-process with ``--quant w8a8`` (Qwen3-4B, W8A8
+    layers, the tied W8 embedding, int8 cache, B=368, prompt 32, 128 greedy
+    steps): tok/s, the decode step and peak memory beside the W8 bench's of
+    this run, the launches of one timed ``generate`` (counters set to 0 just
+    before it: kernels 1, 2 and 7 as the shapes give them, kernels 4–6 none),
+    tokens identical on the repeat, and a 2-step profile (the int8 GEMMs and
+    any weight copy);
+    (b) the quality gate, ``evals.baseline.evaluate`` on the placeholder test
+    splits with the full QA stage at random weights: one bf16 pass, compared
+    with W8A8 and with W4 weights (int8 cache), 32 new tokens; kernels 4–6
+    launch 0 times in each quantized run (counted run by run);
+    (c) one QA batch with ``vlm.quantize_vision("w8a8")`` beside ``"w8"``:
+    the vision time of each and the distance of their features;
+    (d) ``engine.generate_text`` with the prompt penalised (penalty 1.1), 8
+    rows of 64 ids, 32 tokens, bf16: launches as the shapes give them, tokens
+    identical on the repeat.
+    Returns the W8A8 bench's launch counts."""
+    import argparse as ap
+    import dataclasses
+    import tempfile
+    import zlib
+
+    import torch
+
+    from vggt_qwen3_tpu_torch import bench
+    from vggt_qwen3_tpu_torch.data import dataset
+    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
+    from vggt_qwen3_tpu_torch.evals import baseline
+    from vggt_qwen3_tpu_torch.inference import batching, engine, qa
+    from vggt_qwen3_tpu_torch.models import vlm
+
+    # (a) W8A8 decode through the bench
+    bargs = bench.parse_args(["--seed", str(args.seed), "--quant", "w8a8"])
+    counts = {}
+
+    @contextlib.contextmanager
+    def count(i):
+        if i == 0:
+            _zero_counters()
+        yield
+        if i == 0:
+            torch.cuda.synchronize()
+            counts.update(_counters())
+
+    t = time.perf_counter()
+    s = bench.setup(bargs)
+    torch.cuda.synchronize()
+    print(f"W8A8 bench: random init + quantize in {time.perf_counter() - t:.1f} s", flush=True)
+    res = bench.run(bargs, around_rep=count, s=s)
+    B, N, L = bargs.batch, bargs.decode, s.cfg.num_layers
+    print(f"W8A8 bench (Qwen3-4B, W8A8 + int8 KV, B={B}, prompt {bargs.prompt}, {N} steps): {res['tok_s']:.1f} tok/s, "
+          f"walls {res['walls_s']} s, prefill {res['prefill_s'] * 1e3:.1f} ms, decode step {res['step_ms']:.2f} ms, "
+          f"peak memory {res['peak_gib']:.2f} GiB; W8 in this run: {w8_res['tok_s']:.1f} tok/s, decode step "
+          f"{w8_res['step_ms']:.2f} ms, peak memory {w8_res['peak_gib']:.2f} GiB | {res['card']}", flush=True)
+    print(f"W8A8 bench launches in one generate: {json.dumps(counts)}", flush=True)
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_fwd=L, decode_attention=L * N, fused_head_argmax=N + 1)
+    if counts != want:
+        raise AssertionError(f"W8A8 bench launch counts {counts}, expected {want}")
+    t0, t1 = res["tokens"]
+    if t0.shape != (B, N) or not np.array_equal(t0, t1) or not ((t0 >= 0) & (t0 < s.cfg.vocab_size)).all():
+        raise AssertionError("W8A8 bench: the repeat run gave other tokens, or tokens out of range")
+    short = dataclasses.replace(s.gen_cfg, max_new_tokens=2)
+    t = time.perf_counter()
+    bench.timed_generate(s, short)
+    torch.cuda.synchronize()
+    profile_breakdown("W8A8 generate (2 steps)", lambda: bench.timed_generate(s, short),
+                      unprofiled_s=time.perf_counter() - t)
+    del s
+    torch.cuda.empty_cache()
+
+    stage = full_stage()
+    params = qa.load_model(stage, rng_seed=args.seed, device="cuda")
+    tok = load_tokenizer(None)
+
+    # (b) the quality gate on the placeholder test splits (seeded views for their image files)
+    def seeded_rgb(path):
+        rng = np.random.default_rng([args.seed, zlib.crc32(str(path).encode())])
+        return rng.integers(0, 256, (96, 96, 3), dtype=np.uint8)
+
+    real_rgb, real_run, real_batch = dataset.load_rgb, baseline.run_inference, qa.generate_batch
+    runs = []  # every run_inference of the gate: its mode, time, launches and generated tokens
+
+    def counted_run(*a, **kw):
+        tokens = []
+
+        def capture(*x, **y):
+            out = real_batch(*x, **y)
+            tokens.append(out[0].copy())
+            return out
+
+        _zero_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        qa.generate_batch = capture
+        try:
+            out = real_run(*a, **kw)
+        finally:
+            qa.generate_batch = real_batch
+        torch.cuda.synchronize()
+        runs.append(dict(mode=kw["quant_mode"] if kw.get("quantize") else "bf16", secs=time.perf_counter() - t,
+                         counts=_counters(), tokens=np.concatenate(tokens), records=out))
+        return out
+
+    dataset.load_rgb, baseline.run_inference = seeded_rgb, counted_run
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            eargs = baseline.parser().parse_args(
+                ["--datasets", *QUANT_GATE_SPLITS, "--num_samples", "8", "--max_new_tokens", str(args.max_new_tokens),
+                 "--compare_quant", "--data_root", str(REPO), "--output_dir", out, "--device", "cuda"])
+            t = time.perf_counter()
+            summary, base = baseline.evaluate(params, stage, tok, ap.Namespace(**{**vars(eargs), "quant_mode": "w8a8"}))
+            t_a8 = time.perf_counter() - t
+            t = time.perf_counter()
+            summary_w4, _ = baseline.evaluate(params, stage, tok, ap.Namespace(**{**vars(eargs), "quant_mode": "w4"}),
+                                              base=base)
+            t_w4 = time.perf_counter() - t
+    finally:
+        dataset.load_rgb, baseline.run_inference = real_rgb, real_run
+    for name in QUANT_GATE_SPLITS:
+        a8, w4 = summary[name], summary_w4[name]
+        print(f"quality gate {name} ({a8['total']} samples, random weights): bf16 EM {a8['accuracy']:.1f}%; "
+              f"W8A8+int8kv EM {a8['quantized_w8a8_int8kv']['accuracy']:.1f}%, prediction agreement "
+              f"{a8['prediction_agreement']}; W4+int8kv EM {w4['quantized_w4_int8kv']['accuracy']:.1f}%, "
+              f"prediction agreement {w4['prediction_agreement']}", flush=True)
+    for r in runs:
+        print(f"quality gate {r['mode']} run: {r['secs']:.3f} s{'' if r['mode'] == 'bf16' else ' incl. quantizing'}, "
+              f"launches {json.dumps(r['counts'])}", flush=True)
+    quant_runs = [r for r in runs if r["mode"] != "bf16"]
+    if [r["mode"] for r in runs] != ["bf16", "w8a8"] * 3 + ["w4"] * 3 or any(
+            r["counts"][k] for r in quant_runs for k in ("fused_qkv_w8", "fused_linear_w8", "fused_mlp_w8")) \
+            or any(not r["counts"]["flash_fwd"] or not r["counts"]["decode_attention"] for r in runs):
+        raise AssertionError(f"quality gate: runs {[(r['mode'], r['counts']) for r in runs]}")
+    # random weights leave the postprocessed answers mostly empty, so the prediction agreement says
+    # little: how long each quantized run's tokens follow the bf16 run's says more
+    bf16 = [r for r in runs if r["mode"] == "bf16"]
+    for mode in ("w8a8", "w4"):
+        same, firsts = 0, []
+        for ref, got in zip(bf16, [r for r in runs if r["mode"] == mode]):
+            for a_row, b_row in zip(ref["tokens"], got["tokens"]):
+                diff = np.nonzero(a_row != b_row)[0]
+                same += not len(diff)
+                firsts.append(int(diff[0]) if len(diff) else len(a_row))
+        print(f"quality gate tokens, {mode} + int8 KV against bf16: {same}/{len(firsts)} rows identical over "
+              f"{args.max_new_tokens} tokens; first differing step mean {np.mean(firsts):.2f}, min {min(firsts)}; "
+              f"non-empty predictions {sum(bool(x['prediction']) for r in bf16 for x in r['records'])} "
+              f"(bf16) of {len(firsts)}", flush=True)
+    print(f"quality gate: bf16 + W8A8 passes {t_a8:.1f} s, W4 pass {t_w4:.1f} s", flush=True)
+
+    # (c) the vision tower with W8A8 block weights beside W8
+    samples = load_samples(args.seed)
+    prompts = [f"{q['question']}\n<image>\n" for q in samples]
+    ids, mask = (torch.from_numpy(a).cuda() for a in batching.encode_prompts(
+        tok, prompts, pad_to_len=batching.max_prompt_len(tok, prompts)))
+    images = batching.stack_views(samples, stage.data.image_size, "cuda")
+    vc = stage.model.vision
+    feats, vis = {}, {}
+    for mode in ("w8", "w8a8"):
+        qparams = vlm.quantize_vision(params, mode=mode, donate=False)
+        walls = []
+        for _ in range(2):
+            _zero_counters()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            emb, _ = batching.spliced_prompt(qparams, stage, tok.convert_tokens_to_ids("<image>"), images, ids, mask)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        if _counters()["flash_fwd"] != vc.patch_depth + 2 * vc.num_layers or not torch.isfinite(emb.float()).all():
+            raise AssertionError(f"vision {mode}: launches {_counters()}, or features not finite")
+        t = time.perf_counter()
+        res_q = qa.run_inference(qparams, stage, tok, samples, max_new_tokens=args.max_new_tokens, batch_size=8,
+                                 kv_dtype="int8", verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        feats[mode], vis[mode] = emb.float(), dict(vision_s=min(walls), batch_s=time.perf_counter() - t)
+        if len(res_q) != len(samples):
+            raise AssertionError(f"vision {mode}: {len(res_q)} records")
+        del qparams
+    rel = ((feats["w8a8"] - feats["w8"]).norm() / feats["w8"].norm()).item()
+    print(f"vision tower (VGGT-1B, 8 × 8 views × 448², flash launches {vc.patch_depth + 2 * vc.num_layers}): "
+          f"vision+splice W8 {vis['w8']['vision_s']:.3f} s, W8A8 {vis['w8a8']['vision_s']:.3f} s; QA batch W8 "
+          f"{vis['w8']['batch_s']:.3f} s, W8A8 {vis['w8a8']['batch_s']:.3f} s; spliced embeddings W8A8 vs W8 rel RMS "
+          f"{rel:.4g}", flush=True)
+    if not rel < 0.1:
+        raise AssertionError(f"vision W8A8 features far from W8's: rel RMS {rel}")
+
+    # (d) penalised text generation
+    cfg = stage.model.text
+    Bt, St, Nt = 8, 64, 32
+    tids = torch.from_numpy(np.random.default_rng(args.seed).integers(1, cfg.vocab_size, (Bt, St))).cuda()
+    gcfg = engine.GenerationConfig(max_new_tokens=Nt, repetition_penalty=1.1, penalize_prompt=True)
+    outs = []
+    for _ in range(2):
+        _zero_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks, lengths = engine.generate_text(params["text"], cfg, gcfg, input_ids=tids)
+        secs = time.perf_counter() - t
+        outs.append(toks)
+        c = _counters()
+        if (c["flash_fwd"], c["decode_attention"]) != (cfg.num_layers, cfg.num_layers * Nt) or \
+                any(c[k] for k in ("fused_qkv_w8", "fused_linear_w8", "fused_mlp_w8", "fused_head_argmax")):
+            raise AssertionError(f"generate_text launches {c}")
+    if outs[0].shape != (Bt, Nt) or not np.array_equal(*outs) or not (lengths == Nt).all():
+        raise AssertionError("generate_text: the repeat gave other tokens, or a wrong shape")
+    print(f"generate_text (bf16, penalty 1.1 over the prompt, {Bt} × {St} ids, {Nt} tokens): {secs:.3f} s, "
+          f"launches flash {c['flash_fwd']}, decode {c['decode_attention']}; repeat identical", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def arkit_path(args):
@@ -2100,7 +2399,7 @@ def arkit_path(args):
     infer(True, ARKIT_PROFILE_TOKENS)
     torch.cuda.synchronize()
     profile_breakdown(f"ARKit speculative run ({ARKIT_PROFILE_TOKENS} new tokens)",
-                      lambda: infer(True, ARKIT_PROFILE_TOKENS), unprofiled_s=time.perf_counter() - t)
+                      lambda: infer(True, ARKIT_PROFILE_TOKENS), unprofiled_s=time.perf_counter() - t, host_ops=False)
     del params
     torch.cuda.empty_cache()
     return plain["counts"], spec_a["counts"]
@@ -2726,6 +3025,8 @@ def family(name: str) -> str:
         return "W8 gate/up w8_swiglu (ours)"
     if any(k in n for k in ("head_argmax_kernel", "head_reduce_kernel", "head_tile_kernel")):
         return "head_argmax (ours)"  # head_tile_kernel: the name in trees before the wgmma head
+    if "gemm_s8" in n:  # torch._int_mm's cutlass kernels (W8A8)
+        return "int8 matmul (cuBLASLt, W8A8)"
     if any(w in n for w in ("gemm", "nvjet", "sm90_", "cutlass", "cublas", "xmma", "gemv")):
         return "matmul (cuBLAS)"
     return "other (elementwise, norms, copies, reductions)"
@@ -2948,14 +3249,17 @@ def main(argv=None) -> int:
     phase_done("kernel checks")
     reference_check(args.seed)
     reference_check_w8(args.seed)
+    reference_check_quant(args.seed)
     reference_check_speculative(args.seed)
     reference_check_slots(args.seed)
     reference_check_train(args.seed)
     phase_done("card-vs-CPU checks")
     runs = main_path(args)
     phase_done("QA path")
-    w8_counts, _ = w8_bench_path(args)
+    w8_counts, w8_res = w8_bench_path(args)
     phase_done("W8 bench path")
+    w8a8_counts = quant_path(args, w8_res)
+    phase_done("W8A8/W4 and text path")
     arkit_plain, arkit_spec = arkit_path(args)
     phase_done("ARKit path")
     serve = serve_path(args, smi)
@@ -2984,6 +3288,7 @@ def main(argv=None) -> int:
              **bwd["vggt_global"][n], serve_launches=serve["slots"][n]) for n in BWD_REPLACES]
     for kr in kernels:
         not_below_bound(kr["name"], kr["ms"], kr["bound_ms"])
+        kr["w8a8_bench_launches"] = w8a8_counts[kr["name"]]  # one timed W8A8 generate of quant_path
     not_below_bound("decode_attention (W8 shape)", d8["ms"], d8["bound_ms"])
     print(f"int8-cache run launches: flash {runs['int8'][0]}, decode {runs['int8'][1]}", flush=True)
     print(f"ARKit plain constrained run launches: {json.dumps(arkit_plain)}", flush=True)

@@ -150,17 +150,33 @@ def test_quantize_params_w8_bit_exact_and_carried_by_from_jax(tied):
     assert donated is pp and isinstance(pp["layers"]["wq"], dict)
 
 
-def test_unported_quant_modes_raise():
-    pp = params_from_jax(to_np(jqwen3.init_params(jax.random.PRNGKey(3), jconfig.QWEN3_TINY)))
-    for mode in ("w8a8", "w4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pqwen3.quantize_params(pp, mode=mode, donate=False)
-    w = pquant.quantize_per_channel(torch.ones(8, 4))
-    x = torch.ones(2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pquant.linear(x, dict(w, a8=torch.zeros(0, dtype=torch.int8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pquant.linear(x, {"w4p": w["w8"], "gscale": w["scale"]})
+def test_quant_modes_go_through_linear():
+    """W8A8 and W4 dicts multiply through quant.linear (what the JAX module's
+    linear computes for each, at 3 and 20 rows), and the fused W8 wrappers
+    refuse them: only plain W8 reaches kernels 4-6."""
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((64, 32)).astype(np.float32)
+    pw = pquant.quantize_per_channel(torch.from_numpy(w))
+    jw = jax.jit(jquant.quantize_per_channel)(jnp.asarray(w))  # jitted: / 127 becomes × f32(1/127)
+    jw4 = jax.jit(jquant.quantize_per_group_w4)(jnp.asarray(w))
+    for rows in (3, 20):
+        x = rng.standard_normal((rows, 64)).astype(np.float32)
+        xb = torch.from_numpy(x).bfloat16()
+        jx = jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16)
+        a8 = pquant.linear(xb, pquant.mark_act_quant(pw))
+        ref = jax.jit(jquant.linear)(jx, jquant.mark_act_quant(jw))
+        np.testing.assert_array_equal(a8.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+        w4 = pquant.linear(torch.from_numpy(x), pquant.quantize_per_group_w4(torch.from_numpy(w)))
+        ref4 = jquant.linear(jnp.asarray(x), jw4)
+        np.testing.assert_allclose(w4.numpy(), np.asarray(ref4), atol=1e-5, rtol=0)
+    stacked = {k: v[None] for k, v in pw.items()}
+    with pytest.raises(ValueError, match="2-D weight"):
+        pquant.linear(xb, pquant.mark_act_quant(stacked))
+    x8 = torch.ones(4, 64, dtype=torch.bfloat16)
+    for bad in (pquant.mark_act_quant(stacked), {k: v[None] for k, v in pquant.quantize_per_group_w4(
+            torch.from_numpy(w)).items()}):
+        with pytest.raises(ValueError, match="plain W8"):
+            pdm.fused_linear_w8(x8, bad, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +361,7 @@ def test_decode_step_logits_match_jax_with_forced_kernels(jax_kernels_forced, mo
     mask[:, :S] = 1
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (Bn, S))
     jc = jqwen3.init_cache(cfg, Bn, total, dtype="float32")
-    pc = pqwen3.init_cache(pcfg, Bn, total, dtype="float32")
+    pc = pqwen3.init_cache(pcfg, Bn, total, dtype="float32", device="cpu")
     jl0, jc = jqwen3.forward(jp, cfg, input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask),
                              positions=jnp.asarray(pos), cache=jc, prefill_padding="left", last_logit_only=True)
     pl0, pc = pqwen3.forward(pp, pcfg, input_ids=torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),
@@ -379,7 +395,7 @@ def test_decode_step_routes_w8_layers_through_the_fused_wrappers(monkeypatch):
 
         monkeypatch.setattr(pqwen3, name, spy)
     Bn, S = 2, 5
-    cache = pqwen3.init_cache(cfg, Bn, S + 1, dtype="int8")
+    cache = pqwen3.init_cache(cfg, Bn, S + 1, dtype="int8", device="cpu")
     mask = torch.ones(Bn, S + 1, dtype=torch.int32)
     ids = torch.randint(1, cfg.vocab_size, (Bn, S))
     tok, cache = pqwen3.forward_greedy(pp, cfg, input_ids=ids, attention_mask=mask, cache=cache,
@@ -426,7 +442,7 @@ def test_w8_decode_step_with_lora_fuses_each_group_without_adapters_as_jax(jax_k
     mask = np.zeros((Bn, total), np.int32)
     mask[:, :S] = 1
     jc = jqwen3.init_cache(cfg, Bn, total, dtype="float32")
-    pc = pqwen3.init_cache(pcfg, Bn, total, dtype="float32")
+    pc = pqwen3.init_cache(pcfg, Bn, total, dtype="float32", device="cpu")
     _, jc = jqwen3.forward(jp, cfg, input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask), cache=jc,
                            prefill_padding="left", last_logit_only=True)
     _, pc = pqwen3.forward(pp, pcfg, input_ids=torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),

@@ -89,7 +89,7 @@ def test_qwen3_prefill_decode_left_padded_matches(kv_dtype, jax_flash_prefill):
     mask[:, :S] = am
     pos = np.maximum(np.cumsum(am, -1) - 1, 0).astype(np.int32)
     jc = jqwen3.init_cache(jcfg, B, S + N, dtype=kv_dtype or "float32")
-    pc = pqwen3.init_cache(pcfg, B, S + N, dtype=kv_dtype or "float32")
+    pc = pqwen3.init_cache(pcfg, B, S + N, dtype=kv_dtype or "float32", device="cpu")
     jl, jc = jqwen3.forward(jp, jcfg, input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask),
                             positions=jnp.asarray(pos), cache=jc, prefill_padding="left", last_logit_only=True)
     pl, pc = pqwen3.forward(pp, pcfg, input_ids=torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),
@@ -195,7 +195,7 @@ def test_qwen3_cached_calls_off_the_path_raise(call):
     B, S = 2, 6
     ids_np = np.random.default_rng(7).integers(0, pcfg.vocab_size, (B, S)).astype(np.int32)
     ids = torch.from_numpy(ids_np)
-    cache = pqwen3.init_cache(pcfg, B, S + 2, dtype="float32")
+    cache = pqwen3.init_cache(pcfg, B, S + 2, dtype="float32", device="cpu")
     pqwen3.forward(pp, pcfg, input_ids=ids, cache=cache, prefill_padding="left")
     jcache = jqwen3.init_cache(jcfg, B, S + 2, dtype="float32")
     _, jcache = jqwen3.forward(jp, jcfg, input_ids=jnp.asarray(ids_np), cache=jcache, prefill_padding="left")

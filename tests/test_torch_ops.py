@@ -82,7 +82,7 @@ def test_logit_processors_match(penalty, ngram):
 def test_preprocess_matches(shape, size):
     img = np.random.default_rng(4).integers(0, 256, shape).astype(np.uint8)
     ref = np.asarray(jpre.resize_center_crop(img, size))
-    got = ppre.resize_center_crop(img, size).numpy()
+    got = ppre.resize_center_crop(img, size, "cpu").numpy()
     assert got.shape == ref.shape == (3, size, size)
     np.testing.assert_allclose(got, ref, atol=1 / 255 + 1e-6, rtol=0)
 

@@ -6,8 +6,7 @@ the toy config) and served in-process on a free localhost port, for
 on missing fields and on a missing image, 404 on an unknown path. One run
 of ``python -m vggt_qwen3_tpu_torch.inference.server`` as a process checks
 the command line itself; without a card and without ``--device cpu`` the
-server raises, and the unported quantization modes raise naming their
-ROADMAP item.
+server raises; ``--quantize w8a8|w4`` and ``--quantize_vision w8a8`` serve.
 """
 
 from __future__ import annotations
@@ -164,10 +163,34 @@ def test_server_needs_a_card_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--quantize", "w8a8"], ["--quantize", "w4"], ["--quantize_vision", "w8a8"]])
-def test_unported_quantization_modes_raise(flags):
-    args = pserver.parser().parse_args(FLAGS + ["--device", "cpu"] + flags)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        pserver.build_service(args)
+def test_quantization_modes_serve(flags):
+    """Each of ``--quantize w8a8``, ``--quantize w4`` and ``--quantize_vision
+    w8a8`` (with the tiny VGGT tower, not the mock) builds a service whose
+    weights are in that mode and answers a request over HTTP."""
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        base = [f for f in FLAGS if f != "--mock_vision"] if flags[0] == "--quantize_vision" else FLAGS
+        service = pserver.build_service(pserver.parser().parse_args(base + ["--device", "cpu"] + flags))
+    finally:
+        os.chdir(cwd)
+    layer = service.params["text"]["layers"]["wq"]
+    if flags[0] == "--quantize_vision":
+        block = service.params["vision"]["frame_blocks"]["qkv_w"]
+        assert "a8" in block and "w8" in layer and "a8" not in layer  # the text weights keep the default w8
+    else:
+        assert ("a8" in layer) if flags[1] == "w8a8" else ("w4p" in layer)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), pserver.make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        r = _post(httpd.server_address[1], "/v1/qa", {"question": "What is on the table?",
+                                                      "images": [_toy_image()], "max_new_tokens": 4})
+        assert isinstance(r["prediction"], str)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.stop()
 
 
 def test_kernel_build_builds_a_source_once_across_threads(monkeypatch):

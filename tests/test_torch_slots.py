@@ -318,7 +318,7 @@ def test_mha_quantized_kv_matches_jax():
 def test_quantize_vision_w8_matches_jax():
     """The W8 tower: the int8 values and scales of every block projection
     equal JAX's bit for bit, dense leaves stay shared, and the aggregator's
-    output through quant.linear agrees with JAX's (1e-4); w8a8 raises."""
+    output through quant.linear agrees with JAX's (1e-4)."""
     vcfg = jconfig.VGGT_TINY
     jv = jax.jit(jvggt.init_params, static_argnums=1, static_argnames="dtype")(
         jax.random.PRNGKey(3), vcfg, dtype="float32")
@@ -338,5 +338,3 @@ def test_quantize_vision_w8_matches_jax():
     (ref,), _ = jax.jit(jvggt.aggregator, static_argnums=1)(jq, vcfg, jnp.asarray(images))
     (got,), _ = pvggt.aggregator(pq, pconfig.VGGT_TINY, torch.from_numpy(images))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        pvlm.quantize_vision({"vision": pv}, mode="w8a8")

@@ -51,7 +51,7 @@ def test_resume_reproduces_an_uninterrupted_run(tmp_path):
     _run(cfg, tmp_path / "b", "--stop_at_step", "2")
     assert ckpt.latest_step_dir(tmp_path / "b").name == "step_2"
     _run(cfg, tmp_path / "b", "--resume")
-    a, b = ckpt.restore(tmp_path / "a" / "step_4"), ckpt.restore(tmp_path / "b" / "step_4")
+    a, b = (ckpt.restore(tmp_path / d / "step_4", "cpu") for d in ("a", "b"))
     assert a.step == b.step == 4 and a.opt_state["gradient_step"] == b.opt_state["gradient_step"] == 2
     for (na, ta), (nb, tb) in zip(trainer.named_leaves(a.params), trainer.named_leaves(b.params)):
         assert na == nb and torch.equal(ta, tb), na

@@ -2,14 +2,15 @@
 root ``bench.py`` (the JAX package's headline), on one CUDA card.
 
     python -m vggt_qwen3_tpu_torch.bench [--batch 368] [--prompt 32] [--decode 128] \\
-        [--quant w8|none] [--kv int8|bf16] [--seed 0] [--device cuda] [--tiny]
+        [--quant w8|w8a8|none] [--kv int8|bf16] [--seed 0] [--device cuda] [--tiny]
 
 Qwen3-4B with seeded random bf16 weights made on the device, quantized to W8
-(``qwen3.quantize_params``); B rows of a prompt of random ids
+or W8A8 (``qwen3.quantize_params``; the root bench's ``BENCH_QUANT``); B rows of a prompt of random ids
 (``np.random.default_rng(seed).integers(1, V, (B, P))``, all valid), greedy
 decode with repetition penalty 1.0 and no EOS, so ``engine.generate`` takes
-its pure-greedy fast path (the fused W8 kernels and the fused head-argmax)
-over an int8 KV cache. One warm-up ``generate``, then two timed ones.
+its pure-greedy fast path (the fused head-argmax over the int8 embedding;
+under W8 the fused W8 layer kernels, under W8A8 int8×int8 products) over an
+int8 KV cache. One warm-up ``generate``, then two timed ones.
 
 Printed: tokens/s = B·decode / the least wall time of a timed ``generate``
 (host clock around a call that ends in a copy of the tokens to the host,
@@ -57,7 +58,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--batch", type=int, default=368)
     p.add_argument("--prompt", type=int, default=32)
     p.add_argument("--decode", type=int, default=128)
-    p.add_argument("--quant", choices=("w8", "none"), default="w8")
+    p.add_argument("--quant", choices=("w8", "w8a8", "none"), default="w8")
     p.add_argument("--kv", choices=("int8", "bf16"), default="int8")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
@@ -66,13 +67,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def setup(args: argparse.Namespace) -> Setup:
-    """Seeded random weights on the device (quantized with ``--quant w8``),
-    the prompt's embeddings and mask, the generation config."""
+    """Seeded random weights on the device (quantized unless ``--quant
+    none``), the prompt's embeddings and mask, the generation config."""
     dev = resolve_device(args.device)
     cfg = QWEN3_TINY if args.tiny else QWEN3_4B_INSTRUCT_2507
     params = qwen3.init_params(torch.Generator(device=dev).manual_seed(args.seed), cfg)
-    if args.quant == "w8":
-        params = qwen3.quantize_params(params)  # frees each bf16 matrix as it goes
+    if args.quant != "none":
+        params = qwen3.quantize_params(params, mode=args.quant)  # frees each bf16 matrix as it goes
     ids = np.random.default_rng(args.seed).integers(1, cfg.vocab_size, (args.batch, args.prompt))
     with torch.inference_mode():
         embeds = qwen3.embed_tokens(params, torch.from_numpy(ids).to(dev))

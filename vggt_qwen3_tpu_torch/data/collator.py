@@ -70,7 +70,7 @@ class MultiViewCollator:
                 while len(kept) < len(images):  # keep the static view count
                     kept.append(kept[rng.randrange(len(kept))])
                 images = kept
-            pixel.append(preprocess_views(images, self.image_size).numpy())
+            pixel.append(preprocess_views(images, self.image_size, "cpu").numpy())
             answer_obj = sample["answer"]
             answer = answer_obj if isinstance(answer_obj, str) else json.dumps(answer_obj, ensure_ascii=False)
             prompt_ids = self._encode(f"{sample['question']}\n{IMAGE_TOKEN}\n")

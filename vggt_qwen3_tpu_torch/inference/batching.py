@@ -34,7 +34,7 @@ def max_prompt_len(tokenizer, prompts: List[str]) -> int:
     return max(len(tokenizer(p, add_special_tokens=False)["input_ids"]) for p in prompts)
 
 
-def stack_views(samples: List[Dict], image_size: int, device="cpu") -> torch.Tensor:
+def stack_views(samples: List[Dict], image_size: int, device="cuda") -> torch.Tensor:
     """Preprocess each sample's views on ``device``; ragged view counts pad
     by repeating the last view → [B, V, 3, size, size]."""
     views = [preprocess_views(s["images"], image_size, device) for s in samples]

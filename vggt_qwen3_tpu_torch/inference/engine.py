@@ -3,8 +3,9 @@
 
 One prefill over the (possibly vision-spliced) prompt, then single-token
 decode steps: HF repetition penalty and no-repeat-ngram over the generated
-tokens (the ``inputs_embeds`` semantics), finished rows emit
-``pad_token_id``. ``generate_early_exit`` is a host ``while`` loop that stops
+tokens (the ``inputs_embeds`` semantics), or with ``penalize_prompt`` over
+the prompt's ids too (HF's text-only call; :func:`generate_text`), finished
+rows emit ``pad_token_id``. ``generate_early_exit`` is a host ``while`` loop that stops
 the step after every row is done (EOS or per-row budget); ``generate`` runs
 all ``max_new_tokens`` steps. Tokens are identical either way.
 
@@ -20,8 +21,12 @@ of the logits is an argmax, so the prefill and each step go through
 token instead of the logits. Its tokens and lengths are those of the slow
 path.
 
-Not ported: ``generate_text`` and prompt penalisation (the text-only
-path; ROADMAP queue 1 item 1, the next slice).
+Prompt penalisation copies the JAX module's buffer exactly: the seen ids
+start as the prompt's ``[B, S]`` ids and the seen length as the number of
+valid prompt tokens, and generated tokens are written from that length on.
+With a left-padded row the penalty set is therefore the pads and a prefix
+of the prompt, and the first tokens overwrite the prompt's tail; with no
+padding it is HF's set (ROADMAP §3, inherited from the JAX package).
 """
 
 from __future__ import annotations
@@ -44,9 +49,9 @@ class GenerationConfig:
     pad_token_id: int = 0
     repetition_penalty: float = 1.0
     no_repeat_ngram: int = 0
-    # prompt ids in the penalty/ngram sets: the text-only path of JAX's
-    # generate_text, not ported yet (ROADMAP queue 1 item 1); every entry
-    # point of the port refuses it
+    # prompt ids in the penalty/ngram sets (HF's text-only call); with
+    # inputs_embeds HF starts its rolling ids empty, so the vision path keeps
+    # this False
     penalize_prompt: bool = False
     # KV cache storage: None → model dtype; "int8" → per-(token, head) int8
     kv_dtype: Optional[str] = None
@@ -66,13 +71,6 @@ def unpack_lengths(packed: np.ndarray, gen_cfg: GenerationConfig):
     return out, lengths
 
 
-def check_supported(gen_cfg: GenerationConfig) -> None:
-    if gen_cfg.penalize_prompt:
-        raise NotImplementedError(
-            "prompt penalisation (penalize_prompt, the text-only path of generate_text) is not ported yet: "
-            "it is the next slice, ROADMAP queue 1 item 1")
-
-
 def row_budget(budget, B: int, N: int, device) -> torch.Tensor:
     """Per-row token budgets as an int32 [B] tensor (default ``N``); each
     must be at least 1 (a 0-budget row would still emit one token)."""
@@ -87,6 +85,23 @@ def row_budget(budget, B: int, N: int, device) -> torch.Tensor:
 def _processors(logits, seen_ids, seen_len, gen_cfg: GenerationConfig):
     logits = apply_repetition_penalty(logits, seen_ids, seen_len, gen_cfg.repetition_penalty)
     return apply_no_repeat_ngram(logits, seen_ids, seen_len, gen_cfg.no_repeat_ngram)
+
+
+def seen_buffer(gen_cfg: GenerationConfig, attention_mask, prompt_ids, dev):
+    """The logit processors' seen-token buffer [B, cap] and lengths [B]:
+    ``cap = N`` and length 0, or with ``penalize_prompt`` ``cap = S + N``,
+    the prompt's ids first (zeros without ``prompt_ids``) and the length the
+    count of valid prompt tokens — the JAX module's buffer, pads included
+    for a left-padded row."""
+    B, S = attention_mask.shape
+    N = gen_cfg.max_new_tokens
+    if not gen_cfg.penalize_prompt:
+        return (torch.zeros((B, N), dtype=torch.int32, device=dev),
+                torch.zeros((B,), dtype=torch.int32, device=dev))
+    seen_ids = torch.zeros((B, S + N), dtype=torch.int32, device=dev)
+    if prompt_ids is not None:
+        seen_ids[:, :S] = prompt_ids.to(device=dev, dtype=torch.int32)
+    return seen_ids, attention_mask.to(device=dev, dtype=torch.int32).sum(-1, dtype=torch.int32)
 
 
 def constrained_candidates(raw_logits, processed, fsm_state, constraint):
@@ -135,7 +150,7 @@ def _start(cfg: Qwen3Config, gen_cfg: GenerationConfig, inputs_embeds, attention
 
 def _decode(
     params, cfg: Qwen3Config, gen_cfg: GenerationConfig, inputs_embeds, attention_mask, *,
-    early_exit: bool, constraint=None, budget=None,
+    early_exit: bool, prompt_ids=None, constraint=None, budget=None,
 ) -> Tuple[np.ndarray, int]:
     """Prefill + decode steps → (packed [B, N+1] = out | n_gen, steps run)."""
     B, S, _ = inputs_embeds.shape
@@ -151,8 +166,7 @@ def _decode(
     next_logits = logits[:, -1]
     next_pos = positions[:, -1] + 1
     rows = torch.arange(B, device=dev)
-    seen_ids = torch.zeros((B, N), dtype=torch.int32, device=dev)
-    seen_len = torch.zeros((B,), dtype=torch.int32, device=dev)
+    seen_ids, seen_len = seen_buffer(gen_cfg, attention_mask, prompt_ids, dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     n_gen = torch.zeros((B,), dtype=torch.int32, device=dev)
     fsm_state = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -169,7 +183,7 @@ def _decode(
         if gen_cfg.eos_token_id is not None:
             done = done | (tok == gen_cfg.eos_token_id)
         done = done | (n_gen >= budget)
-        seen_ids[rows, seen_len.clamp(0, N - 1).long()] = out_tok
+        seen_ids[rows, seen_len.clamp(0, seen_ids.shape[1] - 1).long()] = out_tok
         seen_len = seen_len + 1
         out[:, t] = out_tok
         mask[:, S + t] = 1
@@ -223,32 +237,46 @@ def greedy_fast_path(params, cfg: Qwen3Config, gen_cfg: GenerationConfig, constr
 @torch.inference_mode()
 def generate(
     params, cfg: Qwen3Config, gen_cfg: GenerationConfig, *,
-    inputs_embeds: torch.Tensor, attention_mask: torch.Tensor, constraint=None,
+    inputs_embeds: torch.Tensor, attention_mask: torch.Tensor, prompt_ids=None, constraint=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Greedy generation of all ``max_new_tokens`` steps.
+    """Greedy generation of all ``max_new_tokens`` steps. ``prompt_ids``
+    [B, S]: the ids backing the prompt, read only with ``penalize_prompt``.
 
     Returns (tokens [B, N] int32 — pad-filled after EOS, lengths [B] —
     generated tokens including EOS)."""
-    check_supported(gen_cfg)
     if greedy_fast_path(params, cfg, gen_cfg, constraint):
         packed = _decode_greedy(params, cfg, gen_cfg, inputs_embeds, attention_mask)
     else:
         packed, _ = _decode(params, cfg, gen_cfg, inputs_embeds, attention_mask, early_exit=False,
-                            constraint=constraint)
+                            prompt_ids=prompt_ids, constraint=constraint)
     return unpack_lengths(packed, gen_cfg)
 
 
 @torch.inference_mode()
 def generate_early_exit(
     params, cfg: Qwen3Config, gen_cfg: GenerationConfig, *,
-    inputs_embeds: torch.Tensor, attention_mask: torch.Tensor, constraint=None, budget=None,
+    inputs_embeds: torch.Tensor, attention_mask: torch.Tensor, prompt_ids=None, constraint=None, budget=None,
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """:func:`generate` that stops once every row is done; also returns the
     number of decode steps run. ``budget``: optional per-row token budgets
     [B] (each ≥ 1, at most ``max_new_tokens``); a row finishes after
     emitting its budget."""
-    check_supported(gen_cfg)
     packed, steps = _decode(params, cfg, gen_cfg, inputs_embeds, attention_mask, early_exit=True,
-                            constraint=constraint, budget=budget)
+                            prompt_ids=prompt_ids, constraint=constraint, budget=budget)
     out, lengths = unpack_lengths(packed, gen_cfg)
     return out, lengths, steps
+
+
+@torch.inference_mode()
+def generate_text(
+    params, cfg: Qwen3Config, gen_cfg: GenerationConfig, *,
+    input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None, constraint=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Text-only :func:`generate`: the embeddings looked up from
+    ``input_ids`` [B, S] (on the params' device), which also back the
+    penalty set under ``penalize_prompt``; the mask defaults to all valid."""
+    if attention_mask is None:
+        attention_mask = torch.ones_like(input_ids)
+    embeds = qwen3.embed_tokens(params, input_ids)
+    return generate(params, cfg, gen_cfg, inputs_embeds=embeds, attention_mask=attention_mask,
+                    prompt_ids=input_ids, constraint=constraint)

@@ -96,9 +96,11 @@ def run_inference(
     ``early_exit`` (default on) stops each batch's decode once every row hit
     EOS; tokens are identical to the fixed-length loop. ``speculative``:
     prompt-lookup speculative decoding (also token-identical; it wins when
-    answers echo prompt spans). ``quantize`` serves the text model with W8
-    weights (``qwen3.quantize_params``, the caller's tree left as it is):
-    the decode steps run the fused W8 kernels and the int8 LM head."""
+    answers echo prompt spans). ``quantize`` serves the text model with
+    quantized weights (``qwen3.quantize_params`` in ``quant_mode``: w8, w8a8
+    or w4; the caller's tree left as it is): under w8 the decode steps run
+    the fused W8 kernels, under w8a8 int8×int8 products and under w4 the
+    packed-nibble products; the LM head is int8 in every mode."""
     dev = resolve_device(device)
     text_dev = params["text"]["final_norm"].device
     if text_dev.type != dev.type:

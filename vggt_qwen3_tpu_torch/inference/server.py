@@ -13,9 +13,11 @@ Two engines:
 Requests pad to the prompt bucket either way. Greedy decoding with
 repetition penalty 1.1, the answer heuristics of ``postprocess_qa_answer``.
 The text model serves W8 weights by default (``--quantize w8``:
-``qwen3.quantize_params``) and the KV cache is int8; ``--quantize_vision
-w8`` quantizes the frozen VGGT tower's block projections
-(``vlm.quantize_vision``). The W8A8 and W4 modes are not ported.
+``qwen3.quantize_params``; ``w8a8`` adds int8 activations, ``w4`` packs
+group-int4 weights, ``none`` keeps bf16) and the KV cache is int8;
+``--quantize_vision w8|w8a8`` quantizes the frozen VGGT tower's block
+projections (``vlm.quantize_vision``). The flags apply to ``--tiny`` models
+too (the JAX server skips them there), so the CPU tests serve every mode.
 
     python -m vggt_qwen3_tpu_torch.inference.server --config configs/stage1_3d.yaml \\
         [--checkpoint_dir DIR | --random_full | --tiny --mock_vision] [--port 8765] \\
@@ -256,22 +258,18 @@ def make_handler(service):
 def build_service(args):
     """The stage, tokenizer, params (quantized as asked) and service of the
     parsed arguments, on ``args.device``."""
-    if args.quantize in ("w8a8", "w4") or args.quantize_vision == "w8a8":
-        raise NotImplementedError(
-            f"--quantize {args.quantize} / --quantize_vision {args.quantize_vision}: the W8A8 and W4 modes "
-            "are not ported yet (ROADMAP queue 1 item 4); use w8 or none")
     dev = resolve_device(args.device)
     stage = build_stage(args)
     tokenizer = load_tokenizer(None if args.tiny else stage.tokenizer_path or stage.text_model_name)
     params = load_model(stage, args.checkpoint_dir, device=dev)
-    if args.quantize == "w8" and not args.tiny:
+    if args.quantize != "none":
         from ..models import qwen3
 
-        params = dict(params, text=qwen3.quantize_params(dict(params["text"])))
-    if args.quantize_vision == "w8" and not args.tiny:
+        params = dict(params, text=qwen3.quantize_params(dict(params["text"]), mode=args.quantize))
+    if args.quantize_vision != "none":
         from ..models import vlm
 
-        params = vlm.quantize_vision(params, mode="w8")
+        params = vlm.quantize_vision(params, mode=args.quantize_vision)
     if args.engine == "slots":
         service = SlotQAService(
             stage, tokenizer, params,
@@ -314,9 +312,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--mock_vision", action="store_true")
     ap.add_argument("--random_full", action="store_true", help="full-size model with seeded random weights")
     ap.add_argument("--quantize_vision", choices=VISION_QUANT_MODES, default="none",
-                    help="frozen VGGT tower: w8 = int8 block weights (w8a8 is not ported)")
+                    help="frozen VGGT tower: w8 = int8 block weights, w8a8 = int8 activations too")
     ap.add_argument("--quantize", choices=QUANT_MODES, default="w8",
-                    help="text model weights at load: w8 (default) or none = bf16 (w8a8 and w4 are not ported)")
+                    help="text model weights at load: w8 = int8 (default), w8a8 = int8 activations too, "
+                         "w4 = group-int4 storage, none = bf16 (the KV cache follows --kv_dtype)")
     ap.add_argument("--device", default="cuda")
     return ap
 

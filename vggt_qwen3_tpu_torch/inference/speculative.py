@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from ..config import Qwen3Config
 from ..models import qwen3
 from .engine import (
-    GenerationConfig, _processors, advance_fsm, check_supported, constrained_greedy, row_budget, unpack_lengths,
+    GenerationConfig, _processors, advance_fsm, constrained_greedy, row_budget, seen_buffer, unpack_lengths,
 )
 
 
@@ -79,10 +79,10 @@ class _Carry:
     """The per-row state of a speculative generation (tensors on the
     device), with :meth:`record` to emit one token where a row may."""
 
-    def __init__(self, B: int, N: int, lookup_ids, lookup_mask, pad_token_id: int, dev):
+    def __init__(self, seen, N: int, lookup_ids, lookup_mask, pad_token_id: int, dev):
+        self.seen_ids, self.seen_len = seen  # engine.seen_buffer: the processors' seen tokens
+        B = self.seen_len.shape[0]
         self.rows = torch.arange(B, device=dev)
-        self.seen_ids = torch.zeros((B, N), dtype=torch.int32, device=dev)
-        self.seen_len = torch.zeros((B,), dtype=torch.int32, device=dev)
         # draft memory: the prompt's ids (their valid run ends at the prompt
         # region's edge: prompts are left-padded), then the generated tokens
         if lookup_ids is not None:
@@ -131,8 +131,9 @@ def generate_speculative(
     """``engine.generate`` with prompt-lookup speculative decoding.
 
     Args match :func:`engine.generate`, plus:
-        prompt_ids: [B, S] ids backing the prompt; the draft memory's
-            default (with ``attention_mask``).
+        prompt_ids: [B, S] ids backing the prompt: the penalty set's prompt
+            part under ``penalize_prompt``, and the draft memory's default
+            (with ``attention_mask``).
         lookup_ids/lookup_mask: [B, S'] token history seeding the draft
             memory; on the vision path the pre-splice text ids. Used only
             for drafting, never for which tokens are produced.
@@ -149,7 +150,6 @@ def generate_speculative(
     forwards."""
     if mode not in ("fused", "host"):
         raise ValueError(f"mode must be 'fused' or 'host', got {mode!r}")
-    check_supported(gen_cfg)
     B, S, _ = inputs_embeds.shape
     N, k, eos = gen_cfg.max_new_tokens, draft_k, gen_cfg.eos_token_id
     dev = inputs_embeds.device
@@ -170,7 +170,8 @@ def generate_speculative(
     )
     next_logits = logits[:, -1]
     next_pos = positions[:, -1] + 1
-    c = _Carry(B, N, lookup_ids, lookup_mask, gen_cfg.pad_token_id, dev)
+    c = _Carry(seen_buffer(gen_cfg, attention_mask, prompt_ids, dev), N, lookup_ids, lookup_mask,
+               gen_cfg.pad_token_id, dev)
     n_gen = torch.zeros((B,), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
 

@@ -31,14 +31,17 @@ K/V of row b land at slots ``offset[b] + arange(S)``.
 The cache is updated **in place** (the JAX module returns an updated copy);
 ``forward_hidden`` returns the same dict it was given.
 
-W8 serving weights (:func:`quantize_params`): every layer projection is a
-``{"w8", "scale"}`` dict and the tied embedding an int8 row quantization.
-Projections go through ``ops.quant.linear`` (dequantize, then one matmul);
-on a decode step (S = 1) or verify block ([B] offsets, S > 1) over W8
-layers, the three fused W8 kernels of ``ops/decode_matmul.py`` (QKV, WO,
-MLP) run instead, over the stacked weights at layer ``li``, whichever
+Quantized serving weights (:func:`quantize_params`): every layer projection
+is a ``{"w8", "scale"}`` dict (W8), the same dict tagged for int8
+activations (W8A8), or packed nibbles ``{"w4p", "gscale"}`` (W4); the tied
+embedding is an int8 row quantization in every mode. Projections go
+through ``ops.quant.linear``; on a decode step (S = 1) or verify block ([B]
+offsets, S > 1), each group of **plain W8** projections (no W8A8 marker, no
+LoRA adapter) runs its fused W8 kernel of ``ops/decode_matmul.py`` (QKV,
+WO, MLP) instead, over the stacked weights at layer ``li``, whichever
 attention runs: over holed rows too, where the JAX module gates them on its
-frontier kernels and dequantizes. Both compute each projection as f32 sums
+frontier kernels and dequantizes. W8A8 and W4 layers always go through
+``quant.linear``, as in the JAX module. Both compute each projection as f32 sums
 of the products with the dequantized weight, rounded once to the activation
 dtype; they differ only in the order of the f32 sums (bit-identical on the
 CPU, where the fused wrappers run ``quant.linear``). Prefills, chunked
@@ -56,7 +59,7 @@ Training (the cache-free path with grad on): each layer runs under
 JAX module's layer scan; attention there is the plain masked ``mha``, as in
 JAX. :func:`lm_logits` differentiates through its f32-output head product.
 
-Not ported: the W8A8 and W4 modes and the pipeline.
+Not ported: the pipeline.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from ..config import Qwen3Config
 from ..ops import quant
 from ..ops.attention import combine_masks, make_causal_mask, mha, mha_quantized_kv
@@ -112,10 +116,12 @@ def init_params(gen: torch.Generator, cfg: Qwen3Config, dtype: Optional[str] = N
 
 
 def init_cache(
-    cfg: Qwen3Config, batch: int, max_len: int, dtype: Optional[str] = None, device="cpu"
+    cfg: Qwen3Config, batch: int, max_len: int, dtype: Optional[str] = None, device="cuda"
 ) -> Dict[str, torch.Tensor]:
-    """Zeroed head-major cache: k/v [L, B, NKV, max_len, D]; ``dtype='int8'``
-    adds bf16 scales ks/vs [L, B, NKV, max_len]."""
+    """Zeroed head-major cache on ``device`` (raises for CUDA without a
+    card): k/v [L, B, NKV, max_len, D]; ``dtype='int8'`` adds bf16 scales
+    ks/vs [L, B, NKV, max_len]."""
+    device = resolve_device(device)
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
     if (dtype or cfg.dtype) == "int8":
         return {
@@ -199,12 +205,13 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 
 def _fused_groups(layers: Params) -> frozenset:
     """The projection groups of a decode step or verify block that run
-    through the fused W8 kernels: each group whose projections are all W8
-    and carry no LoRA adapter. As in the JAX module, each group is gated on
-    its own adapters, so qkvo adapters leave the fused MLP running."""
+    through the fused W8 kernels: each group whose projections are all plain
+    W8 (no W8A8 marker; W4 is not W8) and carry no LoRA adapter. As in the
+    JAX module, each group is gated on its own adapters, so qkvo adapters
+    leave the fused MLP running."""
     lora = layers.get("lora", {})
     return frozenset(g for g, keys in FUSED_GROUPS.items()
-                     if all(isinstance(layers[k], dict) and k not in lora for k in keys))
+                     if all(quant.is_plain_w8(layers[k]) and k not in lora for k in keys))
 
 
 def _layer_qkv(cfg: Qwen3Config, h, lp, cos, sin, stacked=None, li: int = 0, fused=frozenset()):
@@ -423,28 +430,36 @@ def quantize_rows(w: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def quantize_params(params: Params, *, embed: bool = True, donate: bool = True, mode: str = "w8") -> Params:
-    """bf16 params → W8 serving params.
+    """bf16 params → quantized serving params.
 
-    Every layer projection (``QUANTIZED_LAYER_KEYS``) becomes per-output-
-    channel int8; with ``embed`` the token embedding (the tied LM head)
-    becomes int8 rows with per-vocab scales and an untied ``lm_head``
-    per-channel int8. Norms stay as they are.
+    Every layer projection (``QUANTIZED_LAYER_KEYS``) becomes, by ``mode``:
+    per-output-channel int8 (``"w8"``); the same, tagged for int8
+    activations (``"w8a8"``, ``quant.mark_act_quant``); or group-int4 packed
+    nibbles (``"w4"``, quantized one layer at a time). With ``embed`` the
+    token embedding (the tied LM head) becomes int8 rows with per-vocab
+    scales and an untied ``lm_head`` per-channel int8, in every mode. Norms
+    stay as they are.
 
     ``donate`` (the JAX module donates each source matrix to its quantizer):
     the caller's dictionaries are updated in place, so each bf16 matrix is
-    released as soon as its int8 copy exists. ``donate=False`` leaves the
-    caller's tree as it was.
+    released as soon as its quantized copy exists. ``donate=False`` leaves
+    the caller's tree as it was.
     """
-    if mode != "w8":
-        raise NotImplementedError(f"quantize mode {mode!r} is not ported yet (ROADMAP queue 1 item 4: W8A8/W4 modes)")
+    if mode not in ("w8", "w8a8", "w4"):
+        raise ValueError(f"quantize mode must be w8, w8a8 or w4, got {mode!r}")
     out = params if donate else dict(params)
     layers = params["layers"] if donate else dict(params["layers"])
     out["layers"] = layers
     for key in QUANTIZED_LAYER_KEYS:
-        layers[key] = quant.quantize_per_channel(layers[key])
+        if mode == "w4":
+            layers[key] = quant.quantize_stacked_w4(layers[key])
+        else:
+            layers[key] = quant.quantize_per_channel(layers[key])
+            if mode == "w8a8":
+                layers[key] = quant.mark_act_quant(layers[key])
     if embed:
         out["embed"] = quantize_rows(params["embed"])
-        if "lm_head" in params:  # untied head [H, V]: per output channel
+        if "lm_head" in params:  # untied head [H, V]: per output channel, W8 in every mode
             out["lm_head"] = quant.quantize_per_channel(params["lm_head"])
     return out
 

@@ -19,10 +19,8 @@ training splice that overwrites embeddings in place, and the training loss.
 - :func:`train_forward` — geom tokens (when given) before the visual tokens,
   spliced over the first ``<image>``, the cache-free Qwen3 forward, the
   chunked loss.
-- :func:`quantize_vision` — W8 serving weights for the frozen tower's block
-  projections.
-
-Not ported: ``quantize_vision(mode="w8a8")`` (int8 activations).
+- :func:`quantize_vision` — W8 or W8A8 serving weights for the frozen
+  tower's block projections.
 """
 
 from __future__ import annotations
@@ -60,19 +58,20 @@ VISION_BLOCK_QUANT_KEYS = ("qkv_w", "proj_w", "mlp_w1", "mlp_w2")
 
 
 def quantize_vision(params: Params, *, mode: str = "w8", donate: bool = True) -> Params:
-    """W8 serving weights for the frozen VGGT tower: the four projections of
+    """Serving weights for the frozen VGGT tower: the four projections of
     every block (DINOv2, frame, global) become per-output-channel int8 dicts
-    (``quant.quantize_per_channel``, bit-identical to the JAX quantizer);
-    ``models/vggt.py`` multiplies them through ``quant.linear``. The patch
-    embedding, norms, LayerScale, tokens and the Perceiver and geom heads
-    stay as they are. A tree without a tower comes back unchanged.
+    (``quant.quantize_per_channel``, bit-identical to the JAX quantizer),
+    tagged for int8 activations with ``mode="w8a8"``
+    (``quant.mark_act_quant``); ``models/vggt.py`` multiplies them through
+    ``quant.linear``. The patch embedding, norms, LayerScale, tokens and the
+    Perceiver and geom heads stay as they are. A tree without a tower comes
+    back unchanged.
 
     ``donate``: the caller's block dicts are updated in place, so each dense
     matrix is released once its int8 copy exists; ``donate=False`` leaves
-    them as they were. ``mode="w8a8"`` (int8 activations) is not ported."""
-    if mode != "w8":
-        raise NotImplementedError(
-            f"quantize_vision mode {mode!r} is not ported yet (ROADMAP queue 1 item 4: W8A8/W4 modes)")
+    them as they were."""
+    if mode not in ("w8", "w8a8"):
+        raise ValueError(f"quantize_vision mode must be w8 or w8a8, got {mode!r}")
     if "vision" not in params:
         return params
 
@@ -80,6 +79,8 @@ def quantize_vision(params: Params, *, mode: str = "w8", donate: bool = True) ->
         out = blocks if donate else dict(blocks)
         for key in VISION_BLOCK_QUANT_KEYS:
             out[key] = quant.quantize_per_channel(blocks[key])
+            if mode == "w8a8":
+                out[key] = quant.mark_act_quant(out[key])
         return out
 
     vis = dict(params["vision"])

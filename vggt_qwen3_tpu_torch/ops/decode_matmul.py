@@ -51,7 +51,15 @@ N_TILE = 128       # the weight box of every kernel: N, F and V must be multiple
 HEAD_V_TILE = 256  # vocab rows of a head_argmax block: one partial (max, index) a row each
 
 
+def _require_plain_w8(name: str, w) -> None:
+    """These kernels (and their plain versions) take plain W8 weights: a W8A8
+    or W4 dict raises (``qwen3`` never routes one here)."""
+    if not quant.is_plain_w8(w):
+        raise ValueError(f"{name} takes a plain W8 dict (w8, scale), got keys {sorted(w)}")
+
+
 def _at(w: Dict[str, torch.Tensor], li: int) -> Dict[str, torch.Tensor]:
+    _require_plain_w8("a fused W8 layer", w)
     return {"w8": w["w8"][li], "scale": w["scale"][li]}
 
 
@@ -127,7 +135,7 @@ def _check_x(name: str, x: torch.Tensor) -> None:
 def _layer_ptrs(name: str, x: torch.Tensor, w: dict, li: int, n_tile: int) -> Tuple[int, int, int]:
     """(weight pointer, scale pointer, N) of layer ``li`` of a stacked W8
     weight, after checking it against ``x``."""
-    quant.require_w8(w)
+    _require_plain_w8(name, w)
     w8, s = w["w8"], w["scale"]
     if w8.ndim != 3 or w8.dtype != torch.int8 or s.dtype != torch.bfloat16:
         raise ValueError(f"{name}: weights must be stacked int8 [L, K, N] with bf16 scales")
@@ -230,7 +238,7 @@ def fused_head_argmax(x: torch.Tensor, head: dict) -> Tuple[torch.Tensor, torch.
     if not _use_kernel(name, x):
         return fused_head_argmax_plain(x, head)
     _check_x(name, x)
-    quant.require_w8(head)
+    _require_plain_w8(name, head)
     w8, s = head["w8"], head["scale"]
     M, H = x.shape
     V = w8.shape[0]

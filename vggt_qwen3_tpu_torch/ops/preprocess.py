@@ -16,6 +16,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 def _resize_dims(h: int, w: int, size: int) -> tuple[int, int]:
     """torchvision Resize(int): shorter side → size, aspect kept."""
@@ -44,8 +46,10 @@ def resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, 0).astype(np.float32).T
 
 
-def resize_center_crop(image_u8, size: int, device="cpu") -> torch.Tensor:
-    """[H, W, 3] uint8 → [3, size, size] float32 in [0, 1] on ``device``."""
+def resize_center_crop(image_u8, size: int, device="cuda") -> torch.Tensor:
+    """[H, W, 3] uint8 → [3, size, size] float32 in [0, 1] on ``device``
+    (raises for CUDA without a card)."""
+    device = resolve_device(device)
     img = torch.from_numpy(np.array(image_u8, dtype=np.uint8)).to(device)
     if img.ndim != 3 or img.shape[-1] != 3:
         raise ValueError(f"expected an [H, W, 3] image, got {tuple(img.shape)}")
@@ -64,6 +68,7 @@ def resize_center_crop(image_u8, size: int, device="cpu") -> torch.Tensor:
     return (x * torch.tensor(1.0 / 255.0, dtype=torch.float32, device=x.device)).permute(2, 0, 1).contiguous()
 
 
-def preprocess_views(images_u8: Sequence, size: int, device="cpu") -> torch.Tensor:
-    """List of [H, W, 3] uint8 arrays (any sizes) → [V, 3, size, size]."""
+def preprocess_views(images_u8: Sequence, size: int, device="cuda") -> torch.Tensor:
+    """List of [H, W, 3] uint8 arrays (any sizes) → [V, 3, size, size] on
+    ``device``."""
     return torch.stack([resize_center_crop(im, size, device) for im in images_u8], dim=0)

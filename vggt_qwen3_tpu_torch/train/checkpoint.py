@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from .. import resolve_device
 from .trainer import TrainState
 
 
@@ -31,13 +32,15 @@ def save(state: TrainState, path: str | Path) -> None:
     os.replace(tmp, path)
 
 
-def load_params(path: str | Path, device="cpu"):
-    """The parameter tree of a ``step_<n>`` directory, on ``device``."""
-    return torch.load(Path(path) / "params.pt", map_location=device, weights_only=True)
+def load_params(path: str | Path, device="cuda"):
+    """The parameter tree of a ``step_<n>`` directory, on ``device`` (raises
+    for CUDA without a card)."""
+    return torch.load(Path(path) / "params.pt", map_location=resolve_device(device), weights_only=True)
 
 
-def restore(path: str | Path, device="cpu") -> TrainState:
+def restore(path: str | Path, device="cuda") -> TrainState:
     """The whole train state of a ``step_<n>`` directory, on ``device``."""
+    device = resolve_device(device)
     rest = torch.load(Path(path) / "train_state.pt", map_location=device, weights_only=True)
     return TrainState(params=load_params(path, device), opt_state=rest["opt_state"], step=int(rest["step"]))
 
