@@ -155,9 +155,34 @@ Run from the root of a checkout. It:
    trainable leaf changed unless its update is under half a bf16 ulp
    everywhere; micro-step wall time, tokens/s, peak memory and a profile of
    one micro step with its update;
+9b. the training recipes (``train_recipes_path``): (a) the bench's train
+   mode (``bench.train_setup`` / ``train_micro`` / ``train_measure``) at the
+   stage-1 recipe's micro batch (``recipe_stage``: B 6, 8 views × 448², text
+   512, LoRA r16 on qkvo, the tower W8A8 and the Qwen3 base W8 frozen,
+   8-bit AdamW, full width and depth; a cycle of 2 micro steps and the
+   update; the schedule's horizon cut to 4 updates so that the second runs
+   at the peak learning rate): micro-step and cycle times, the update
+   residual, the recipe step (32 micro steps and the residual), text
+   tokens/s, MFU against 989 TFLOP/s, peak memory, 72 flash forwards a micro
+   step and no other launch, frozen leaves unmoved and trainable ones moved,
+   and a device-only profile of one cycle (the optimizer's kernels between
+   marker kernels); (b) ``configs/stage2_arkit.yaml`` (``stage2_train_stage``:
+   LoRA r32 on q/v/o, layers 0-1 frozen, 10 views, text 4096; 2 rows a micro
+   step, grad_accum 2) through ``init_train_state``, ``sft.build_data`` over
+   the ARKit placeholder split (its records and JPEGs through the port's
+   readers; the decoder backend that ran is printed) and
+   ``make_train_step``, 2 micro steps and one update (kernel 1 is held to
+   its plain version and timed at that run's global attention,
+   [2, 10290, 16, 64], among the kernel checks of step 3,
+   ``stage2_flash_check``); (c) ``reference_check_adam8bit``: the 8-bit update on
+   the card against the CPU, on the same gradients and in a small bf16
+   trainer run;
 10. prints the kernels line (with each kernel's launches on the serving
-   path, ``serve_launches``, and in one timed W8A8 bench ``generate``,
-   ``w8a8_bench_launches``), the card line and, last, the ok line.
+   path, ``serve_launches``, in one timed W8A8 bench ``generate``,
+   ``w8a8_bench_launches``, in the bench train mode's run,
+   ``train_recipe_launches``, and in the stage-2 run, ``stage2_launches``;
+   kernel 1 with its stage-2 global shape's times), the card line and, last,
+   the ok line.
 
 Any failure raises and the script exits non-zero. Without a CUDA device, or
 outside a checkout of the repo, it exits non-zero before printing a result.
@@ -1625,10 +1650,11 @@ def reference_check_slots(seed: int):
 
 def _fingerprint(t):
     """An exact fingerprint of a tensor's bits: (sum, sum of squares) of its
-    16-bit words as int64 — any update of an element changes it."""
+    16-bit words (of its bytes, for a 1-byte type) as int64 — any update of
+    an element changes it."""
     import torch
 
-    w = t.detach().contiguous().view(torch.int16).to(torch.int64)
+    w = t.detach().contiguous().view(torch.uint8 if t.element_size() == 1 else torch.int16).to(torch.int64)
     return int(w.sum()), int((w * w).sum())
 
 
@@ -1898,6 +1924,374 @@ def train_path(args):
     gc.collect()
     torch.cuda.empty_cache()
     return result
+
+
+RECIPE_CYCLE = 2  # micro steps in the recipe phase's timed cycle (the recipe accumulates 32)
+RECIPE_MAX_STEPS = 4  # its schedule horizon (30,000): the second update runs at the peak learning rate
+STAGE2_BATCH, STAGE2_GRAD_ACCUM = 2, 2  # the stage-2 run (the recipe: 4 rows, grad_accum 64)
+MARK_CYCLES = 100  # a torch.cuda._sleep marker kernel on either side of each optimizer update in a profile
+
+
+def recipe_stage():
+    """The stage ``configs/stage1_3d.yaml`` gives the trainer (LoRA r16 on
+    qkvo, text layers 0-3 frozen, B 6, grad_accum 32), built from the
+    presets, with one reduction for the recipe phase: a schedule horizon of
+    ``RECIPE_MAX_STEPS`` updates (30,000), so that the bench's second update
+    runs at the peak learning rate."""
+    import dataclasses
+
+    st = train_stage()
+    return dataclasses.replace(st, train=dataclasses.replace(st.train, batch_size_per_device=6, grad_accum=32,
+                                                             max_steps=RECIPE_MAX_STEPS))
+
+
+def stage2_train_stage():
+    """The stage ``configs/stage2_arkit.yaml`` gives the trainer (LoRA r32 on
+    q/v/o, text layers 0-1 frozen, 10 views, max_length 4096, view dropout
+    0.2), built from the presets, reduced for the chip check: 2 rows a micro
+    step (the recipe has 4) and grad_accum 2 (64)."""
+    import dataclasses
+
+    from vggt_qwen3_tpu_torch.config import LoRAConfig, TrainConfig
+
+    return dataclasses.replace(
+        arkit_stage(),
+        train=TrainConfig(precision="bf16", optimizer="adamw", lr=2e-5, proj_lr=2e-4, weight_decay=0.05,
+                          warmup_ratio=0.05, batch_size_per_device=STAGE2_BATCH, grad_accum=STAGE2_GRAD_ACCUM,
+                          max_steps=10_000, save_every_steps=1000, eval_every_steps=2000, log_every_steps=20,
+                          gradient_clip=1.0, seed=42),
+        lora=LoRAConfig(enable=True, rank=32, alpha=64, dropout=0.05, target_modules=("q_proj", "v_proj", "o_proj")),
+        freeze_text_layers=(0, 1),
+    )
+
+
+def reference_check_adam8bit(seed: int):
+    """The 8-bit AdamW update at small width, card against CPU: (1) the same
+    seeded f32 gradients through ``trainer.Optimizer(optimizer="adamw8bit")``
+    over the small stage's tree, 2 updates at grad_accum 2: the int8 codes
+    may differ by one where the two devices round an f32 intermediate
+    differently, and the count of such codes is printed and held to 1e-4 of
+    all; the scales and the parameters to 1e-6 relative; (2) the small-width
+    bf16 trainer run (``_small_train_stage`` with ``adamw8bit``, the tower
+    frozen) on both devices from the same weights and batches, 4 micro steps:
+    losses within 1e-2 and grad norms within 2e-2 relative, the loss of the
+    first batch under the updated parameters within 1e-2, frozen leaves
+    unmoved. The parameter updates and the moments' codes of that run are
+    printed, not held: the bf16 gradients differ at bf16's resolution, and
+    the JAX algorithm's linear ``nu`` codes (ROADMAP §3) turn an element
+    whose gradient falls between updates into a step of the gradients'
+    ratio, so the two runs' updates differ at their own size (measured:
+    ‖Δcard − Δcpu‖₂ = 1.26·‖Δcpu‖₂, single elements moving by up to 10 at a
+    learning rate of 1e-3 on both devices). Returns the measured numbers."""
+    import dataclasses
+
+    import torch
+
+    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
+    from vggt_qwen3_tpu_torch.models import vlm
+    from vggt_qwen3_tpu_torch.train import sft, trainer
+
+    st = _small_train_stage()
+    st = dataclasses.replace(st, model=dataclasses.replace(st.model, freeze_vision=True),
+                             train=dataclasses.replace(st.train, optimizer="adamw8bit"))
+    out = {}
+    # (1) the same gradients on both devices
+    cpu_params, _ = trainer.init_train_state(torch.Generator().manual_seed(seed), st, dtype="float32")
+    card_params = _to_device(cpu_params.params, "cuda")
+    cpu_params = cpu_params.params
+    txs = {d: trainer.make_tx(st, p) for d, p in (("host", cpu_params), ("card", card_params))}
+    states = {d: txs[d].init(p) for d, p in (("host", cpu_params), ("card", card_params))}
+    rng = np.random.default_rng(seed)
+    for _ in range(4):
+        g = {n: torch.from_numpy((rng.standard_normal(p.shape) * 0.05).astype(np.float32))
+             for n, p in trainer.named_leaves(cpu_params)}
+        txs["host"].update(g, states["host"], cpu_params)
+        txs["card"].update({n: t.cuda() for n, t in g.items()}, states["card"], card_params)
+    torch.cuda.synchronize()
+    off = total = 0
+    worst_code = 0
+    for key in ("mu", "nu"):
+        for n, m in states["host"][key].items():
+            d = (states["card"][key][n]["q"].cpu().int() - m["q"].int()).abs()
+            worst_code = max(worst_code, int(d.max()))
+            off += int((d != 0).sum())
+            total += d.numel()
+            s_rel = ((states["card"][key][n]["s"].cpu() - m["s"]).abs() / m["s"].abs().clamp_min(1e-30)).max().item()
+            if s_rel > 1e-6 and not (m["s"] == 0).all():
+                raise AssertionError(f"8-bit update card vs CPU: scales of {key}/{n} {s_rel:.3e} apart")
+    cpu_leaves = dict(trainer.named_leaves(cpu_params))
+    p_rel = max(((p.cpu() - cpu_leaves[n]).abs() / cpu_leaves[n].abs().clamp_min(1e-30)).max().item()
+                for n, p in trainer.named_leaves(card_params))
+    identical = all(torch.equal(p.cpu(), cpu_leaves[n]) for n, p in trainer.named_leaves(card_params))
+    out.update(same_grads_codes_off_by_one=off, same_grads_codes=total, same_grads_worst_code=worst_code,
+               same_grads_params_rel=p_rel, same_grads_params_identical=identical)
+    print(f"8-bit AdamW card vs CPU, the same f32 gradients, 2 updates: {off} of {total} int8 codes differ "
+          f"(at most by {worst_code}); parameters {'bit-identical' if identical else f'within {p_rel:.3e} relative'}",
+          flush=True)
+    if worst_code > 1 or off > 1e-4 * total or p_rel > 1e-6:
+        raise AssertionError("8-bit update card vs CPU: the same gradients give other updates")
+    # (2) the bf16 trainer run on both devices
+    tok = load_tokenizer(None)
+    img_id = tok.convert_tokens_to_ids("<image>")
+    loader = sft.build_data(st, tok, datasets=seeded_datasets(st, seed))
+    batches = [next(loader) for _ in range(4)]
+    cpu, cpu_tx = trainer.init_train_state(torch.Generator().manual_seed(seed), st, dtype="bfloat16")
+    init = {n: t.clone() for n, t in trainer.named_leaves(cpu.params)}
+    card_params = _to_device(cpu.params, "cuda")
+    card_tx = trainer.make_tx(st, card_params)
+    card = trainer.TrainState(params=card_params, opt_state=card_tx.init(card_params), step=0)
+    metrics = {}
+    for name, state, tx, dev in (("card", card, card_tx, "cuda"), ("host", cpu, cpu_tx, "cpu")):
+        step = trainer.make_train_step(st, tx, img_id, has_geom=True)
+        metrics[name] = []
+        for b in batches:
+            state, m = step(state, sft.to_device(b, dev), None)
+            metrics[name].append((float(m["loss"]), float(m["grad_norm"])))
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(metrics["card"], metrics["host"]))
+    norm_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(metrics["card"], metrics["host"]))
+    after = {}  # the loss of the first batch under the updated parameters
+    for name, state, dev in (("card", card, "cuda"), ("host", cpu, "cpu")):
+        b = sft.to_device(batches[0], dev)
+        with torch.no_grad():
+            after[name] = float(vlm.train_forward(state.params, st.model, images=b["pixel_values"],
+                                                  geom_token=b["geom_token"], input_ids=b["input_ids"],
+                                                  attention_mask=b["attention_mask"], labels=b["labels"],
+                                                  image_token_id=img_id))
+    after_rel = abs(after["card"] - after["host"]) / abs(after["host"])
+    num = den = 0.0
+    per_leaf = {}
+    cpu_leaves = dict(trainer.named_leaves(cpu.params))
+    for n, p in trainer.named_leaves(card.params):
+        if card_tx.labels[n] == "frozen":
+            if not torch.equal(p.cpu(), init[n]):
+                raise AssertionError(f"8-bit trainer card vs CPU: frozen leaf {n} changed on the card")
+            continue
+        got, ref, p0 = p.float().cpu(), cpu_leaves[n].float(), init[n].float()
+        d, r = ((got - p0) - (ref - p0)).norm().item(), (ref - p0).norm().item()
+        per_leaf[n] = (d / max(r, 1e-30), r, (got - p0).abs().max().item(), (ref - p0).abs().max().item())
+        num += d ** 2
+        den += r ** 2
+    upd_rel = (num / max(den, 1e-30)) ** 0.5
+    worst = sorted(per_leaf.items(), key=lambda kv: -kv[1][0])[:6]
+    print("8-bit AdamW trainer card vs CPU: the leaves whose updates differ most (rel, ‖Δcpu‖₂, max|Δcard|, "
+          f"max|Δcpu|): {[(n, [float(f'{x:.3e}') for x in v]) for n, v in worst]}", flush=True)
+    codes = []
+    for key in ("mu", "nu"):
+        for n, m in cpu.opt_state[key].items():
+            codes.append((card.opt_state[key][n]["q"].cpu().int() - m["q"].int()).abs())
+    codes = torch.cat([c.reshape(-1) for c in codes])
+    out.update(loss_rel=loss_rel, grad_norm_rel=norm_rel, loss_after_rel=after_rel, updates_rel=upd_rel,
+               codes_differ=int((codes != 0).sum()), codes_differ_by_one=int((codes == 1).sum()),
+               codes_worst=int(codes.max()), codes=codes.numel())
+    print(f"8-bit AdamW trainer card vs CPU (small width, bf16, tower frozen, 4 micro steps, 2 updates): loss rel "
+          f"{loss_rel:.3e}, grad_norm rel {norm_rel:.3e}, loss after the updates {after} (rel {after_rel:.3e}), "
+          f"updates rel {upd_rel:.3e} (not held); int8 codes differing "
+          f"{out['codes_differ']} of {out['codes']} ({out['codes_differ_by_one']} by one, at most "
+          f"{out['codes_worst']}); losses card {[round(m[0], 5) for m in metrics['card']]} CPU "
+          f"{[round(m[0], 5) for m in metrics['host']]}", flush=True)
+    if not (loss_rel <= 1e-2 and norm_rel <= 2e-2 and after_rel <= 1e-2 and den > 0):
+        raise AssertionError("8-bit trainer card vs CPU: card and CPU disagree")
+    return out
+
+
+def stage2_flash_check(gen) -> dict:
+    """Kernel 1 at the stage-2 training run's VGGT global attention, [2,
+    10·1029, 16, 64] (``check_flash``)."""
+    st = stage2_train_stage()
+    vc = st.model.vision
+    tpf = vc.patch_start_idx + (st.data.image_size // vc.patch_size) ** 2
+    return check_flash("stage2_global", STAGE2_BATCH, st.data.num_views * tpf, st.data.num_views * tpf, vc.num_heads,
+                       vc.num_heads, vc.embed_dim // vc.num_heads, causal=False, starts=[0] * STAGE2_BATCH, gen=gen)
+
+
+def train_recipes_path(args):
+    """The phase "training recipes": (a) the bench's train mode at the
+    stage-1 recipe's micro batch (``recipe_stage``: B 6, 8 views at 448²,
+    text 512, the W8A8 tower, the W8 base plus LoRA, 8-bit AdamW, full width
+    and depth, a cycle of ``RECIPE_CYCLE`` micro steps) with its launches
+    (72 flash forwards a micro step, nothing else), frozen leaves unmoved and
+    trainable ones moved, and a device-only profile of one cycle; (b) the
+    stage of ``configs/stage2_arkit.yaml`` (``stage2_train_stage``) through
+    ``init_train_state``, ``sft.build_data`` over the ARKit placeholder split
+    (its records and JPEGs read by the port's readers) and
+    ``make_train_step``: 2 micro steps, one update; (c)
+    ``reference_check_adam8bit``."""
+    import gc
+
+    import torch
+
+    from vggt_qwen3_tpu_torch import bench
+    from vggt_qwen3_tpu_torch.data import image_decode, jsonl_index
+    from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+    from vggt_qwen3_tpu_torch.train import sft, trainer
+
+    out = {}
+    # (a) the bench's train mode at the recipe's micro batch
+    st = recipe_stage()
+    vc = st.model.vision
+    blocks = vc.patch_depth + 2 * vc.num_layers  # 72 attentions a forward
+    bargs = bench.parse_args(["--mode", "train", "--cycle", str(RECIPE_CYCLE), "--seed", str(args.seed),
+                              "--device", "cuda"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    s = bench.train_setup(bargs, stage=st)
+    torch.cuda.synchronize()
+    leaves = dict(trainer.named_leaves(s.params))
+    prints = {n: _fingerprint(p) for n, p in leaves.items()}
+    lora_frozen = {n: [_fingerprint(p[i]) for i in st.freeze_text_layers]
+                   for n, p in s.trainable.items() if n.startswith("text/layers/lora/")}
+    min_abs = {n: p.abs().min().item() for n, p in s.trainable.items()}
+    print(f"training recipes (a) bench train mode: setup {time.perf_counter() - t:.1f} s, "
+          f"{s.B} rows x {s.V} views x {s.S}^2, text {s.T}, vision {bargs.vquant}, frozen text {bargs.textq}, "
+          f"{bargs.opt}, {sum(p.numel() for p in s.trainable.values()) / 1e9:.3f} B trainable; memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    _zero_counters()
+    loss, grads = bench.train_micro(s, 0)
+    torch.cuda.synchronize()
+    per_micro = _counters()
+    grad_norm = float(trainer.global_norm(grads.values()))
+    del grads
+    _zero_counters()
+    res = bench.train_measure(s)
+    torch.cuda.synchronize()
+    run_counts = _counters()
+    n_micro = 1 + bench.MICRO_REPS + (1 + bench.CYCLE_REPS) * s.k
+    want = {k: (blocks if k == "flash_fwd" else 0) for k in per_micro}
+    print(f"training recipes (a): micro step {res['micro_s']:.4f} s (walls {res['micro_walls_s']}), cycle of {s.k} "
+          f"micro steps + the {bargs.opt} update {res['cycle_s']:.4f} s (walls {res['cycle_walls_s']}), update "
+          f"residual {res['update_residual_s']:.4f} s, recipe step (accum {s.accum}) {res['step_s']:.3f} s, "
+          f"{res['tok_s']:.1f} text tokens/s, MFU {100 * res['mfu']:.2f}% ({res['mfu_peak']}; "
+          f"{res['flops_micro'] / 1e12:.1f} TFLOP a micro step), peak memory {res['peak_gib']:.2f} GiB; loss "
+          f"{float(loss):.4f}, grad_norm {grad_norm:.4f}; losses {res['losses']}; launches a micro step "
+          f"{json.dumps(per_micro)}, in the run of {n_micro} micro steps {json.dumps(run_counts)}", flush=True)
+    if per_micro != want or run_counts != {k: n_micro * v for k, v in want.items()}:
+        raise AssertionError(f"training recipes (a): launches {per_micro} a micro step, {run_counts} in the run; "
+                             f"expected {want} a micro step")
+    if not (np.isfinite(float(loss)) and np.isfinite(grad_norm)):
+        raise AssertionError(f"training recipes (a): loss {float(loss)} or grad_norm {grad_norm} not finite")
+    if s.opt_state["gradient_step"] != 1 + bench.CYCLE_REPS:
+        raise AssertionError(f"training recipes (a): {s.opt_state['gradient_step']} updates")
+    leaves = dict(trainer.named_leaves(s.params))
+    moved = [n for n in s.trainable if _fingerprint(leaves[n]) != prints[n]]
+    for n, p in leaves.items():
+        if n not in s.trainable and _fingerprint(p) != prints[n]:
+            raise AssertionError(f"training recipes (a): frozen leaf {n} changed")
+    for n, fps in lora_frozen.items():
+        if [_fingerprint(leaves[n][i]) for i in st.freeze_text_layers] != fps:
+            raise AssertionError(f"training recipes (a): the adapters of a frozen layer changed ({n})")
+    # a trainable leaf may stay unchanged only where no gradient reached it (its 8-bit mu codes all 0)
+    # or every element's step is under half a bf16 ulp (|p| > 768·lr everywhere)
+    lr = {"base": st.train.lr, "proj": st.train.proj_lr}
+    still = [n for n in s.trainable if n not in moved]
+    no_grad = [n for n in still if not s.opt_state["mu"][n]["q"].any()]
+    bad = [n for n in still if n not in no_grad and min_abs[n] <= 768 * lr[s.tx.labels[n]]]
+    print(f"training recipes (a): {len(moved)} of {len(s.trainable)} trainable leaves changed; unchanged with no "
+          f"gradient yet: {no_grad}; unchanged, every element's step under half a bf16 ulp: "
+          f"{[n for n in still if n not in no_grad]}", flush=True)
+    if bad:
+        raise AssertionError(f"training recipes (a): trainable leaves unchanged after the updates: {bad}")
+
+    def marked_cycle():
+        for i in range(s.k):
+            _, g = bench.train_micro(s, 900 + i)
+            torch.cuda._sleep(MARK_CYCLES)
+            s.tx.update(g, s.opt_state, s.params)
+            torch.cuda._sleep(MARK_CYCLES)
+            del g
+
+    profile_breakdown(f"training recipes (a): one cycle ({s.k} micro steps + the {bargs.opt} update)", marked_cycle,
+                      unprofiled_s=res["cycle_s"], host_ops=False, marked_range=("optimizer", 2 * s.k))
+    out["recipe"] = dict(res, per_micro=per_micro, counts=run_counts, loss=float(loss), grad_norm=grad_norm)
+    del s, leaves, prints
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) stage 2 through the trainer on the ARKit placeholder split
+    st = stage2_train_stage()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tok = load_tokenizer(None)
+    img_id = tok.convert_tokens_to_ids("<image>")
+    t = time.perf_counter()
+    state, tx = trainer.init_train_state(torch.Generator(device="cuda").manual_seed(args.seed), st,
+                                         dtype=st.model.dtype)
+    torch.cuda.synchronize()
+    leaves = dict(trainer.named_leaves(state.params))
+    prints = {n: _fingerprint(p) for n, p in leaves.items() if tx.labels[n] == "frozen"}
+    lora_frozen = {n: [_fingerprint(p[i]) for i in st.freeze_text_layers]
+                   for n, p in leaves.items() if n.startswith("text/layers/lora/")}
+    print(f"training recipes (b) stage 2: random init in {time.perf_counter() - t:.1f} s, LoRA on "
+          f"{sorted(state.params['text']['layers']['lora'])}, memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    decoded0 = dict(image_decode.decoded)
+    t = time.perf_counter()
+    loader = sft.build_data(st, tok, data_root=str(REPO))
+    batches = [next(loader) for _ in range(STAGE2_GRAD_ACCUM)]
+    read_s = time.perf_counter() - t
+    decoded = {k: v - decoded0[k] for k, v in image_decode.decoded.items()}
+    native_ok = image_decode.native_available()
+    print(f"training recipes (b): read {len(batches)} batches of {STAGE2_BATCH} ARKit records "
+          f"({json.dumps(st.data.datasets)}) in "
+          f"{read_s:.2f} s; images decoded: {json.dumps(decoded)} (native decoder "
+          f"{'available' if native_ok else 'not available: ' + str(image_decode.why_not_native())}"
+          f"; JSONL index native: {jsonl_index.native_available()})", flush=True)
+    if sum(decoded.values()) == 0:
+        raise AssertionError("training recipes (b): no image was decoded")
+    step_fn = trainer.make_train_step(st, tx, img_id, has_geom=True)
+    walls, per_step, metrics = [], [], []
+    stage2_counts = dict.fromkeys(_counters(), 0)
+    for i, b in enumerate(batches):
+        b = sft.to_device(b, "cuda")
+        if b["pixel_values"].shape[1:] != (st.data.num_views, 3, st.data.image_size, st.data.image_size) or \
+                b["input_ids"].shape[1] != st.data.max_length:
+            raise AssertionError(f"training recipes (b): batch shapes {tuple(b['pixel_values'].shape)}, "
+                                 f"{tuple(b['input_ids'].shape)}")
+        gen_i = trainer.step_generator(st.train.seed + 1, i, "cuda")
+        torch.cuda.synchronize()
+        _zero_counters()
+        fa.fwd_copies.update(dict.fromkeys(fa.fwd_copies, 0))
+        t = time.perf_counter()
+        state, m = step_fn(state, b, gen_i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        c = _counters()
+        per_step.append(c)
+        for k in stage2_counts:
+            stage2_counts[k] += c[k]
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: (blocks if k == "flash_fwd" else 0) for k in stage2_counts}
+    print(f"training recipes (b): {len(batches)} micro steps of {STAGE2_BATCH} rows x {st.data.num_views} views x "
+          f"{st.data.image_size}^2, text {st.data.max_length}; walls {[round(w, 3) for w in walls]} s; loss/grad_norm "
+          f"{metrics}; launches a micro step {[c['flash_fwd'] for c in per_step]} flash fwd, in the run "
+          f"{json.dumps(stage2_counts)}; peak memory {peak:.2f} GiB", flush=True)
+    if any(c != want for c in per_step):
+        raise AssertionError(f"training recipes (b): launches a micro step {per_step}, expected {want}")
+    if any(fa.fwd_copies.values()):
+        raise AssertionError(f"training recipes (b): the flash forward copied operands {fa.fwd_copies}")
+    if not all(np.isfinite(x) for m in metrics for x in m):
+        raise AssertionError(f"training recipes (b): loss or grad_norm not finite: {metrics}")
+    if state.opt_state["gradient_step"] != 1:
+        raise AssertionError(f"training recipes (b): {state.opt_state['gradient_step']} updates")
+    leaves = dict(trainer.named_leaves(state.params))
+    for n, fp in prints.items():
+        if _fingerprint(leaves[n]) != fp:
+            raise AssertionError(f"training recipes (b): frozen leaf {n} changed")
+    for n, fps in lora_frozen.items():
+        if [_fingerprint(leaves[n][i]) for i in st.freeze_text_layers] != fps:
+            raise AssertionError(f"training recipes (b): the adapters of a frozen layer changed ({n})")
+    out["stage2"] = dict(walls=walls, peak_gib=peak, counts=stage2_counts, per_step=per_step[0], metrics=metrics,
+                         decoded=decoded)
+    del state, tx, leaves, step_fn, batches, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the 8-bit update, card against CPU
+    out["adam8bit_check"] = reference_check_adam8bit(args.seed)
+    return out
 
 
 def main_path(args):
@@ -3059,12 +3453,17 @@ def missed_launches(launched: dict, kernel_names: list) -> dict:
 
 
 def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None, host_ops: bool = True,
-                      tries: int = 3):
+                      tries: int = 3, marked_range=None):
     """One more run of a main-path phase under torch.profiler: device time by
     kernel family and by kernel. The profiler slows the host, so the idle
     share is also given against ``unprofiled_s``, the same run's wall time
     without it. With ``range_family``, the kernels launched by ops inside the
-    ``record_function`` range of that name count to that family. A session
+    ``record_function`` range of that name count to that family. With
+    ``marked_range`` = (family, n) — for device-only tracing, where no host
+    range is recorded — the run brackets each range with a
+    ``torch.cuda._sleep`` marker kernel on either side (n markers in all),
+    and the kernels that start between the two markers of a pair count to
+    that family. A session
     that saw fewer kernels of one of our families than its wrappers launched
     is run again, ``tries`` sessions in all; each family line gives its
     launches, and if none of the sessions saw them all, the last one's lines say how
@@ -3098,7 +3497,20 @@ def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None, h
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
         each.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    if range_family is not None:
+    if marked_range is not None:
+        range_family, n_marks = marked_range
+        marks = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                        and PAD_KERNEL in e.name), key=lambda e: e.time_range.start)[:n_marks]
+        if len(marks) < n_marks:  # the profiler pad's kernels come after the run's markers
+            print(f"profile {label}: {len(marks)} of {n_marks} range markers seen: no {range_family!r} range",
+                  flush=True)
+        spans = [(marks[i].time_range.end, marks[i + 1].time_range.start) for i in range(0, len(marks) - 1, 2)]
+        for e in kernels:
+            if any(a <= e.time_range.start < b for a, b in spans):
+                ranged[e.name] = ranged.get(e.name, 0.0) + e.time_range.elapsed_us()
+        if not ranged:
+            print(f"profile {label}: no kernel ran between the {range_family!r} markers", flush=True)
+    elif range_family is not None:
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA and e.kernels and _in_range(e, range_family):
                 for k in e.kernels:
@@ -3246,6 +3658,7 @@ def main(argv=None) -> int:
     w8 = check_w8(txt, 368, gen)  # the W8 bench shape: 368 rows
     torch.cuda.empty_cache()
     bwd = backward_checks(stage, gen)  # kernels 8 and 9 on kernel 1's lse
+    stage2_flash = stage2_flash_check(gen)  # kernel 1 at the stage-2 training run's global shape
     phase_done("kernel checks")
     reference_check(args.seed)
     reference_check_w8(args.seed)
@@ -3266,14 +3679,19 @@ def main(argv=None) -> int:
     phase_done("serving path")
     train = train_path(args)
     phase_done("training path")
+    recipes = train_recipes_path(args)
+    phase_done("training recipes")
 
     f, d, d8 = flash["vggt_global"], decode["bf16"], attention["decode_w8"]
     lse = flash["train_global"]
+    f2 = stage2_flash
     kernels = [
         dict(name="flash_fwd", route="cuda", source=FLASH_SOURCE,
              replaces=FLASH_REPLACES, launches=runs[None][0], **f, lse_shape=lse["shape"],
              lse_ms=lse["ms"], lse_library_ms=lse["library_ms"], lse_max_abs_err=lse["lse_max_abs_err"],
-             training_launches=train["counts"]["flash_fwd"], serve_launches=serve["slots"]["flash_fwd"]),
+             training_launches=train["counts"]["flash_fwd"], serve_launches=serve["slots"]["flash_fwd"],
+             stage2_shape=f2["shape"], stage2_ms=f2["ms"], stage2_plain_ms=f2["plain_ms"],
+             stage2_library_ms=f2["library_ms"], stage2_bound_ms=f2["bound_ms"], stage2_max_abs_err=f2["max_abs_err"]),
         dict(name="decode_attention", route="cuda", source=ATTENTION_SOURCE, replaces=DECODE_REPLACES,
              launches=runs[None][1], **d, w8_shape=d8["shape"], w8_launches=w8_counts["decode_attention"],
              w8_ms=d8["ms"], w8_plain_ms=d8["plain_ms"], w8_library_ms=d8["library_ms"], w8_library=d8["library"],
@@ -3289,6 +3707,9 @@ def main(argv=None) -> int:
     for kr in kernels:
         not_below_bound(kr["name"], kr["ms"], kr["bound_ms"])
         kr["w8a8_bench_launches"] = w8a8_counts[kr["name"]]  # one timed W8A8 generate of quant_path
+        kr["train_recipe_launches"] = recipes["recipe"]["counts"][kr["name"]]  # the bench train mode's run
+        kr["stage2_launches"] = recipes["stage2"]["counts"][kr["name"]]  # the stage-2 run's 2 micro steps
+    not_below_bound("flash_fwd (stage-2 global shape)", f2["ms"], f2["bound_ms"])
     not_below_bound("decode_attention (W8 shape)", d8["ms"], d8["bound_ms"])
     print(f"int8-cache run launches: flash {runs['int8'][0]}, decode {runs['int8'][1]}", flush=True)
     print(f"ARKit plain constrained run launches: {json.dumps(arkit_plain)}", flush=True)
@@ -3297,6 +3718,11 @@ def main(argv=None) -> int:
           f"speculative {json.dumps(serve['spec_prefix'])}", flush=True)
     print(f"training run (freeze_vision false, {2 * TRAIN_GRAD_ACCUM} micro steps) launches: "
           f"{json.dumps(train['counts'])}; a micro step: {train['per_step']}", flush=True)
+    r = recipes["recipe"]
+    keys = ("micro_s", "cycle_s", "update_residual_s", "step_s", "tok_s", "mfu", "peak_gib")
+    print(f"training recipes: bench train mode {json.dumps({k: r[k] for k in keys})}; "
+          f"stage 2 walls {recipes['stage2']['walls']}, peak {recipes['stage2']['peak_gib']:.2f} GiB; 8-bit update "
+          f"card vs CPU {json.dumps(recipes['adam8bit_check'])}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s, by phase {json.dumps(phases)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -21,8 +21,14 @@ and function names so each counterpart is easy to find:
   ``step_<n>/params.pt``); the per-component converters live beside their
   models (``models/convert_qwen3.py``, ``convert_torch_state_dict``).
 - ``train/``  : the SFT trainer (optax's AdamW, clip and accumulation in
-  plain torch), losses, ``torch.save`` checkpoints and the CLI (``python -m
-  vggt_qwen3_tpu_torch.train.sft``); ``data/`` holds the collator and loader.
+  plain torch; block-wise 8-bit AdamW in ``train/adam8bit.py``), losses,
+  ``torch.save`` checkpoints and the CLI (``python -m
+  vggt_qwen3_tpu_torch.train.sft``); ``data/`` holds the collator and loader,
+  the lazy JSONL index and the thread-pooled image decoder (host C++ in
+  ``csrc/*.cpp``, built with the host compiler at first use).
+- ``utils/``  : the metric logger (JSONL and TensorBoard), the monitor CLI,
+  NaN/finiteness checks and ``torch.profiler`` traces.
+- ``bench.py``: the root bench's decode and train modes.
 
 Kernels are chosen by device: a CUDA tensor goes through the kernel (or the
 wrapper raises), a CPU tensor through the plain version. Entry points default

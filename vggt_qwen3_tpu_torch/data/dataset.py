@@ -2,12 +2,15 @@
 dataset (the port's own copy of ``vggt_qwen3_tpu/data/dataset.py``).
 
 Records normalise to ``{images, geom_token, question, answer, task,
-scene_id}``; image paths resolve with the ``data/raw`` fallback; images load
-as RGB uint8 numpy arrays through PIL, imported only when an image is read.
-JSONL is parsed with ``json``, so no native library is needed. Ragged view
-counts pad to ``num_views`` by repeating the last view, as the JAX package
-does (a known divergence from the upstream reference, kept for parity);
-per-view geometry arrays follow the same truncate/pad policy.
+scene_id}``; image paths resolve with the ``data/raw`` fallback. A ``.jsonl``
+file is read lazily, as in JAX: the dataset keeps ``(JsonlIndex, i)`` slots
+(``data/jsonl_index.py``, the native mmap indexer or its Python fallback) and
+parses a record when it is read; a ``.json`` array is parsed at open. Images
+load as RGB uint8 numpy arrays through :func:`load_rgb`, which decodes with
+``data/image_decode.py`` (the native decoder where it builds, PIL otherwise).
+Ragged view counts pad to ``num_views`` by repeating the last view, as the
+JAX package does (a known divergence from the upstream reference, kept for
+parity); per-view geometry arrays follow the same truncate/pad policy.
 
 :class:`MultiSourceDataset` keeps the reference's mix-ratio interleave with
 its randomness: a ~100-slot schedule from the ratios, ``random.Random(0)``,
@@ -26,6 +29,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .image_decode import decode_rgb
+from .jsonl_index import JsonlIndex
+
 
 @dataclass(frozen=True)
 class DatasetConfig:
@@ -36,12 +42,10 @@ class DatasetConfig:
     root: Optional[str] = None  # base dir for relative paths (default: cwd)
 
 
-def read_records(path: Path) -> List[Dict]:
-    """All records of one .jsonl or .json file."""
-    text = Path(path).read_text(encoding="utf-8")
-    if Path(path).suffix == ".jsonl":
-        return [json.loads(line) for line in text.splitlines() if line.strip()]
-    records = json.loads(text)
+def read_json_array(path: Path) -> List[Dict]:
+    """The records of a ``.json`` file: an array, or a dict's ``data`` /
+    ``samples`` array."""
+    records = json.loads(Path(path).read_text(encoding="utf-8"))
     if isinstance(records, dict):
         records = records.get("data") or records.get("samples") or []
     if not isinstance(records, list):
@@ -50,10 +54,8 @@ def read_records(path: Path) -> List[Dict]:
 
 
 def load_rgb(path: str) -> np.ndarray:
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), dtype=np.uint8)
+    """One view as RGB uint8 (``image_decode.decode_rgb``'s default backend)."""
+    return decode_rgb(path)
 
 
 class MultiViewJsonDataset:
@@ -68,16 +70,29 @@ class MultiViewJsonDataset:
         else:
             files = sorted(root.glob(config.path_glob))
         self.files = files
-        self._records: List[Dict] = [r for f in files for r in read_records(f)]
-        if not self._records:
+        self._slots: List = []  # a record (.json) or (JsonlIndex, i) (.jsonl, parsed when read)
+        for file in files:
+            if file.suffix == ".jsonl":
+                index = JsonlIndex(file)
+                self._slots.extend((index, i) for i in range(len(index)))
+            else:
+                self._slots.extend(read_json_array(file))
+        if not self._slots:
             raise FileNotFoundError(f"no samples found for pattern {config.path_glob}")
 
+    def _record(self, idx: int) -> Dict:
+        slot = self._slots[idx]
+        if isinstance(slot, tuple):
+            index, i = slot
+            return index[i]
+        return slot
+
     def __len__(self) -> int:
-        return len(self._records)
+        return len(self._slots)
 
     def meta(self, idx: int) -> Dict:
         """Raw record metadata without loading images."""
-        return self._records[idx]
+        return self._record(idx)
 
     def _load_image(self, rel_path: str) -> np.ndarray:
         root = Path(self.config.root) if self.config.root else Path()
@@ -105,7 +120,7 @@ class MultiViewJsonDataset:
         return out
 
     def __getitem__(self, idx: int) -> Dict:
-        sample = self._records[idx]
+        sample = self._record(idx)
         loaded = [self._load_image(img) for img in sample["images"][: self.config.num_views]]
         while loaded and len(loaded) < self.config.num_views:
             loaded.append(loaded[-1])

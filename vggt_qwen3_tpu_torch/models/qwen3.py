@@ -498,19 +498,20 @@ def lm_logits(params: Params, cfg: Qwen3Config, hidden: torch.Tensor) -> torch.T
 
     An int8 head enters the dot unscaled and its f32 scale multiplies the
     result: per vocab row for the tied embedding, per column for an untied
-    per-channel head."""
+    per-channel head. Differentiated (a frozen W8 base under LoRA), the
+    gradient reaches the hidden state only, through the same f32 product."""
     x = hidden.reshape(-1, hidden.shape[-1])
     head = _HeadDot.apply if torch.is_grad_enabled() else _head_dot
     if cfg.tie_word_embeddings:
         w = params["embed"]
         if isinstance(w, dict):
-            out = _head_dot(x, w["w8"].t()) * w["scale"][:, 0].float()
+            out = head(x, w["w8"].t()) * w["scale"][:, 0].float()
         else:
             out = head(x, w.t())
     else:
         w = params["lm_head"]
         if isinstance(w, dict):
-            out = _head_dot(x, w["w8"]) * w["scale"][0].float()
+            out = head(x, w["w8"]) * w["scale"][0].float()
         else:
             out = head(x, w)
     return out.reshape(*hidden.shape[:-1], out.shape[-1])

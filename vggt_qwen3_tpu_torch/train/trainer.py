@@ -22,6 +22,10 @@ JAX trainer's (``trainer.py:113-159``):
    ``base`` (Qwen3, or its LoRA adapters under LoRA; the vision tower when
    not frozen) at ``lr``, ``proj`` (projector and geom head) at ``proj_lr``;
    ``frozen`` leaves get no update and no moments.
+   With ``optimizer: adamw8bit`` step 3 is the JAX trainer's chain
+   ``scale_by_adam8bit`` (``train/adam8bit.py``: int8 block moments, f32 math,
+   the step in the parameter dtype), then ``+ weight_decay·p`` (a fused
+   multiply-add, as XLA compiles it), then ``× −lr(count)``.
 4. The frozen-layer mask: updates of ``text/layers`` leaves at the indices of
    ``freeze_text_layers`` times 0.
 
@@ -41,6 +45,7 @@ import torch
 
 from ..config import StageConfig, TrainConfig
 from ..models import qwen3, vlm
+from . import adam8bit
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -137,10 +142,7 @@ class Optimizer:
 
     def __init__(self, cfg: TrainConfig, labels: Dict[str, str], *, freeze_text_layers: tuple = (),
                  num_text_layers: int = 0):
-        if cfg.optimizer == "adamw8bit":
-            raise NotImplementedError(
-                "optimizer adamw8bit (block-wise int8 moments) is not ported yet (ROADMAP: training)")
-        if cfg.optimizer != "adamw":
+        if cfg.optimizer not in ("adamw", "adamw8bit"):
             raise ValueError(f"unknown train.optimizer {cfg.optimizer!r}")
         self.cfg = cfg
         self.labels = labels
@@ -150,16 +152,17 @@ class Optimizer:
         self.num_text_layers = num_text_layers
 
     def init(self, params) -> Dict[str, Any]:
-        """Moments (zeros in the parameter dtype) for every trainable leaf;
-        accumulators appear with the first gradient of a leaf."""
+        """Moments for every trainable leaf (zeros in the parameter dtype; for
+        ``adamw8bit`` the zero int8 blocks of ``adam8bit.zeros``); accumulators
+        appear with the first gradient of a leaf."""
         trainable = [(n, p) for n, p in named_leaves(params) if self.labels[n] != "frozen"]
-        return {
-            "mini_step": 0,
-            "gradient_step": 0,
-            "acc": {},
-            "mu": {n: torch.zeros_like(p) for n, p in trainable},
-            "nu": {n: torch.zeros_like(p) for n, p in trainable},
-        }
+        if self.cfg.optimizer == "adamw8bit":
+            mu = {n: adam8bit.zeros(p, True) for n, p in trainable}
+            nu = {n: adam8bit.zeros(p, False) for n, p in trainable}
+        else:
+            mu = {n: torch.zeros_like(p) for n, p in trainable}
+            nu = {n: torch.zeros_like(p) for n, p in trainable}
+        return {"mini_step": 0, "gradient_step": 0, "acc": {}, "mu": mu, "nu": nu}
 
     @torch.no_grad()
     def update(self, grads: Dict[str, Optional[torch.Tensor]], state: Dict[str, Any], params) -> bool:
@@ -203,6 +206,7 @@ class Optimizer:
         lr = {group: -sched(count) for group, sched in self.schedules.items()}
         bc1 = 1 - torch.pow(torch.tensor(B1, dtype=torch.float32), float(count + 1))
         bc2 = 1 - torch.pow(torch.tensor(B2, dtype=torch.float32), float(count + 1))
+        bc8 = None
         for name, p in named_leaves(params):
             group = self.labels[name]
             if group == "frozen":
@@ -212,12 +216,18 @@ class Optimizer:
             if clip:
                 g = (g / g_norm.to(device=g.device, dtype=g.dtype)) * _scalar(cfg.gradient_clip, g)
             mu, nu = state["mu"][name], state["nu"][name]
-            mu.mul_(_scalar(B1, mu)).add_(_scalar(1 - B1, g) * g)
-            nu.mul_(_scalar(B2, nu)).add_(_scalar(1 - B2, g) * (g * g))
-            mu_hat = mu / bc1.to(device=mu.device, dtype=mu.dtype)
-            nu_hat = nu / bc2.to(device=nu.device, dtype=nu.dtype)
-            u = mu_hat / (torch.sqrt(nu_hat) + _scalar(EPS, nu_hat))
-            u = u + _scalar(cfg.weight_decay, p) * p
+            if cfg.optimizer == "adamw8bit":  # JAX: scale_by_adam8bit, add_decayed_weights, scale_by_learning_rate
+                if bc8 is None:
+                    bc8 = adam8bit.bias_corrections(count + 1, B1, B2, p.device)
+                u = adam8bit.leaf_update(g, mu, nu, *bc8, b1=B1, b2=B2, eps=EPS)
+                u = adam8bit.fma(p, _scalar(cfg.weight_decay, p), u)
+            else:
+                mu.mul_(_scalar(B1, mu)).add_(_scalar(1 - B1, g) * g)
+                nu.mul_(_scalar(B2, nu)).add_(_scalar(1 - B2, g) * (g * g))
+                mu_hat = mu / bc1.to(device=mu.device, dtype=mu.dtype)
+                nu_hat = nu / bc2.to(device=nu.device, dtype=nu.dtype)
+                u = mu_hat / (torch.sqrt(nu_hat) + _scalar(EPS, nu_hat))
+                u = u + _scalar(cfg.weight_decay, p) * p
             u = lr[group].to(device=u.device, dtype=u.dtype) * u
             if self.keep is not None and name.startswith("text/layers/") and u.ndim >= 1 \
                     and u.shape[0] == self.num_text_layers:
