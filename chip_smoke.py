@@ -48,8 +48,11 @@ Run from the root of a checkout. It:
    at the QA batch's VGGT frame [64, 1029, 16, 64] and global
    [8, 8232, 16, 64] shapes, the training global shape with its lse output
    (within 1e-3 of the plain version's, exactly -1e30 on dead rows), the
-   QA prefill (causal, left-padded, 32/8 heads, D = 128) and the W8 bench's
-   prefill (368 prompts of 32 tokens), each with its
+   QA prefill (causal, left-padded, 32/8 heads, D = 128), the W8 bench's
+   prefill (368 prompts of 32 tokens) and the root ring mode's 32-view shape
+   [1, 32·1029, 16, 64] (with and without lse; its first and last 1024
+   query rows held to the plain version over every key, which cannot run
+   whole: ~69 GB of scores), each with its
    bound beside the floor of its exponentials on a line of its own
    (``flash_fwd_floors``). The flash backward
    kernels (dq; dk/dv) and the
@@ -177,12 +180,26 @@ Run from the root of a checkout. It:
    ``stage2_flash_check``); (c) ``reference_check_adam8bit``: the 8-bit update on
    the card against the CPU, on the same gradients and in a small bf16
    trainer run;
+9c. the root bench's other modes (``bench_modes_path``): e2e, qa, spec,
+   serve, serve_sla and ring through ``vggt_qwen3_tpu_torch.bench``'s mode
+   functions at full width with the root bench's shapes and defaults (W8
+   text, int8 KV where the root has it), on one seeded W8 VLM tree (serve and
+   serve_sla take its text), a warm-up and 1 timed repetition instead of the
+   root's warm-up and 3–5;
+   each mode's figures on a line, its launches (counters set to 0 just
+   before and read just after) held to ``bench_mode_launches_ok`` (kernel
+   1's count exact, from the shapes, repetitions and admissions), the first
+   launch of each kernel at every shape the mode gives it held to its plain
+   version after the run (``first_launches``), and its output to
+   ``bench_mode_output_ok``;
 10. prints the kernels line (with each kernel's launches on the serving
    path, ``serve_launches``, in one timed W8A8 bench ``generate``,
    ``w8a8_bench_launches``, in the bench train mode's run,
-   ``train_recipe_launches``, and in the stage-2 run, ``stage2_launches``;
-   kernel 1 with its stage-2 global shape's times), the card line and, last,
-   the ok line.
+   ``train_recipe_launches``, in the stage-2 run, ``stage2_launches``, and
+   in each bench mode's run, ``bench_modes_launches``, with the shapes held
+   there and their largest error, ``bench_modes_held``; kernel 1 with its
+   stage-2 global shape's and the ring shape's times), the card line and,
+   last, the ok line.
 
 Any failure raises and the script exits non-zero. Without a CUDA device, or
 outside a checkout of the repo, it exits non-zero before printing a result.
@@ -2294,6 +2311,347 @@ def train_recipes_path(args):
     return out
 
 
+RING_VIEWS, RING_TOKENS_A_VIEW = 32, 1029  # the root ring mode's shape: [1, 32·1029, 16, 64]
+RING_BAND = 1024  # query rows a band held to the plain version (the whole plain forward needs ~69 GB of scores)
+
+
+def check_flash_ring(gen) -> dict:
+    """Kernel 1 at the root ring mode's shape ``[1, 32·1029, 16, 64]`` (bf16,
+    no mask), without and with its lse: the first and the last ``RING_BAND``
+    query rows held to the plain version over every key (``held_to_plain``;
+    the lse within 1e-3), device times beside SDPA's and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+
+    S, NH, D = RING_VIEWS * RING_TOKENS_A_VIEW, 16, 64
+    q, k, v = (torch.randn(1, S, NH, D, device="cuda", generator=gen).bfloat16() for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    out_l, lse = fa.flash_attention_with_lse(q, k, v)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out_l):
+        raise AssertionError("flash_fwd[ring]: the output with lse differs from the one without")
+    agree, lse_err = [], 0.0
+    for a in (0, S - RING_BAND):
+        ref, ref_lse = fa.flash_attention_plain_with_lse(q[:, a:a + RING_BAND], k, v)
+        agree.append(held_to_plain(f"flash_fwd[ring rows {a}:{a + RING_BAND}]", out[:, a:a + RING_BAND], ref))
+        lse_err = max(lse_err, (lse[:, :, a:a + RING_BAND] - ref_lse).abs().max().item())
+        del ref, ref_lse
+        torch.cuda.empty_cache()
+    if lse_err > 1e-3:
+        raise AssertionError(f"flash_fwd lse[ring]: max abs err {lse_err}")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ms = device_ms(lambda: fa.flash_attention(q, k, v), iters=5)
+    lse_ms = device_ms(lambda: fa.flash_attention_with_lse(q, k, v), iters=5)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5)
+    flops = 4 * NH * D * S * S
+    bms, by = bound_ms(2 * 4 * S * NH * D, flops)
+    exp_floor = NH * S * S / (H100_SMS * H100_EXP_PER_SM_CLOCK * sm_clock_hz()) * 1e3
+    not_below_bound("flash_fwd (ring shape)", ms, bms)
+    res = dict(shape=f"ring q[1,{S},{NH},{D}] kv[1,{S},{NH},{D}] causal=False, rows 0:{RING_BAND} and "
+                     f"{S - RING_BAND}:{S} against the plain version",
+               ms=ms, lse_ms=lse_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
+               max_abs_err=max(a["max_abs_err"] for a in agree), rel_rms=max(a["rel_rms"] for a in agree),
+               lse_max_abs_err=lse_err)
+    print(f"flash_fwd_floors[ring] bound_ms {bms:.4f} ({by}); exp_floor_ms {exp_floor:.4f}", flush=True)
+    print(f"flash_fwd {json.dumps(res)}", flush=True)
+    return res
+
+
+BENCH_MODES = ("e2e", "qa", "spec", "serve", "serve_sla", "ring")
+# timed repetitions of each e2e/qa/spec/ring measurement, after its warm-up call (the root bench's: 3–5): at the
+# card's host-bound pace serve_sla's 3 × 96 Poisson arrivals alone take ~1.5 minutes
+BENCH_MODE_REPS = 1
+BENCH_MODES_ARGV = ["--device", "cuda"]  # the modes' full width on the card (the root bench's shapes and defaults)
+STEP_W8 = ("fused_qkv_w8", "fused_linear_w8", "fused_mlp_w8")
+PATH_KERNELS = ("flash_fwd", "decode_attention", "block_verify_attention", *STEP_W8, "fused_head_argmax")
+
+
+def bench_mode_flash_launches(mode: str, res: dict, cfg) -> int:
+    """Kernel 1's launches in a mode's run, from its shapes and repetitions:
+    a VGGT encode launches one a block (the patch embedder's, then a frame
+    and a global block a layer), a prefill one a Qwen3 layer; every timed
+    call follows one warm-up call; serve and serve_sla prefill once an
+    admission dispatch (``admit_dispatches``, of every pass)."""
+    vis = cfg.vision.patch_depth + 2 * cfg.vision.num_layers
+    pre = cfg.text.num_layers
+    calls = 1 + BENCH_MODE_REPS
+    if mode == "e2e":  # the whole query and its TTFT; the early-exit curve: one warm-up, then reps a budget
+        return (vis + pre) * (2 * calls + 1 + len(res["early_exit"]) * BENCH_MODE_REPS)
+    if mode == "qa":
+        return (vis + pre) * calls
+    if mode == "spec":  # generate and generate_speculative, constrained and free; the action query, plain and spec
+        return calls * (4 * pre + 2 * (vis + pre))
+    if mode == "serve":
+        return pre * (res["warmup_admit_dispatches"] + res["admit_dispatches"])
+    if mode == "serve_sla":
+        return pre * res["admit_dispatches"]
+    return calls + 2 + 1  # ring: the direct forward's calls, the merge's two halves, the one-rank ring's one step
+
+
+def bench_mode_launches_ok(mode: str, c: dict, res: dict, cfg) -> list:
+    """The launches a mode's run must show (``_counters``): kernel 1 exactly
+    ``bench_mode_flash_launches``; kernel 2 in each mode that decodes, and
+    each W8 layer kernel once a layer of every decode step and verify block
+    (= kernels 2 + 3); kernel 3 only in spec's speculative runs; kernel 7
+    only in spec's free ``generate`` (the greedy fast path: penalty 1.0, no
+    FSM); the backward kernels never. → the failed rules."""
+    decodes = mode != "ring"
+    rules = {
+        f"flash_fwd = {bench_mode_flash_launches(mode, res, cfg)}":
+            c["flash_fwd"] == bench_mode_flash_launches(mode, res, cfg),
+        "decode_attention": (c["decode_attention"] > 0) == decodes,
+        "block_verify_attention": (c["block_verify_attention"] > 0) == (mode == "spec"),
+        "W8 layer kernels = decode + verify": all(
+            c[n] == c["decode_attention"] + c["block_verify_attention"] for n in STEP_W8),
+        "fused_head_argmax": (c["fused_head_argmax"] > 0) == (mode == "spec"),
+        "flash_bwd 0": c["flash_bwd_dq"] == c["flash_bwd_dkv"] == 0,
+    }
+    return [r for r, ok in rules.items() if not ok]
+
+
+def _copy(x):
+    """A copy of ``x`` with its strides (the layout the launch read)."""
+    import torch
+
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device).copy_(x)
+
+
+def _layout(*xs) -> tuple:
+    import torch
+
+    return tuple((tuple(x.shape), tuple(x.stride()), str(x.dtype)) if torch.is_tensor(x) else x for x in xs)
+
+
+@contextlib.contextmanager
+def first_launches(seen: dict):
+    """Inside the block, each kernel of the bench modes' path (``PATH_KERNELS``)
+    has its inputs copied aside at its first launch of every shape and
+    layout: ``seen[(kernel, layout)]`` = the inputs (one layer of a cache,
+    as the launch reads one; the weights by reference, which nothing
+    writes). ``hold_first_launches`` replays them after the run."""
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+    from vggt_qwen3_tpu_torch.ops import decode_matmul as dm
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+
+    flash = fa.flash_fwd_kernel
+
+    def flash_first(q, k, v, start, end, causal, scale, with_lse):
+        key = ("flash_fwd", _layout(q, k, v, causal, with_lse))
+        if key not in seen:
+            seen[key] = (_copy(q), _copy(k), _copy(v), start.clone(), end.clone(), causal, scale, with_lse)
+        return flash(q, k, v, start, end, causal, scale, with_lse)
+
+    def attention_first(name):
+        kernel = getattr(da, "gqa_" + name)
+
+        def call(q, k, v, li, start, bound, ks=None, vs=None, **kw):
+            key = (name, _layout(q, k[li], ks is None, *kw.items()))
+            if key not in seen:
+                one = [None if t is None else t[li:li + 1].clone() for t in (k, v, ks, vs)]
+                seen[key] = ((q.clone(), one[0], one[1], 0, start.clone(), bound.clone(), one[2], one[3]), kw)
+            return kernel(q, k, v, li, start, bound, ks, vs, **kw)
+
+        return call
+
+    def w8_first(name):
+        kernel = getattr(dm, name)
+
+        def call(x, *ws):
+            key = (name, _layout(x))  # one weight tree in the phase
+            if key not in seen:
+                seen[key] = (x.clone(), *ws)
+            return kernel(x, *ws)
+
+        return call
+
+    fa.flash_fwd_kernel = flash_first
+    try:
+        with qwen3_routed(gqa_decode_attention=attention_first("decode_attention"),
+                          gqa_block_verify_attention=attention_first("block_verify_attention"),
+                          **{n: w8_first(n) for n in (*STEP_W8, "fused_head_argmax")}):
+            yield
+    finally:
+        fa.flash_fwd_kernel = flash
+
+
+def hold_first_launches(seen: dict) -> dict:
+    """Each launch ``first_launches`` copied aside, run again through its
+    kernel and its plain version and held to it: kernel 1 by
+    ``held_to_plain`` (above 8 GiB of the plain version's f32 scores, its
+    first ``RING_BAND`` query rows against every key), its lse within 1e-3
+    and exactly -1e30 on dead rows; kernels 2 and 3, and the W8 layer
+    kernels (their outputs together), by ``held_to_plain``; kernel 7's token
+    the plain head's argmax or within 1e-4 × max|logit| of it. → kernel →
+    [{shape, max_abs_err}]; raises on a disagreement."""
+    import torch
+
+    from vggt_qwen3_tpu_torch.ops import decode_attention as da
+    from vggt_qwen3_tpu_torch.ops import decode_matmul as dm
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+
+    held = {}
+    for (name, layout), a in seen.items():
+        what = f"{name}[{layout[0][0]}]"
+        if name == "flash_fwd":
+            q, k, v, start, end, causal, scale, with_lse = a
+            got, lse = fa.flash_fwd_kernel(*a)
+            B, S, NH, _ = q.shape
+            rows = S if B * NH * S * k.shape[1] * 4 <= 2**33 else RING_BAND
+            ref, ref_lse = fa.flash_attention_plain_with_lse(q[:, :rows], k, v, causal=causal, kv_start=start,
+                                                             kv_end=end, scale=scale)
+            err = held_to_plain(what, got[:, :rows], ref)["max_abs_err"]
+            if with_lse:
+                lse, live = lse[:, :, :rows], ref_lse > -1e29
+                if (lse[live] - ref_lse[live]).abs().max().item() > 1e-3 or not (lse[~live] == -1e30).all():
+                    raise AssertionError(f"{what}: lse off its plain version's")
+            shape = f"q{list(q.shape)} kv{list(k.shape)} causal={causal} lse={with_lse}" + (
+                f", rows 0:{rows}" if rows < S else "")
+            del ref, ref_lse
+        elif name in ("decode_attention", "block_verify_attention"):
+            args, kw = a
+            got = getattr(da, "gqa_" + name)(*args, **kw)
+            err = held_to_plain(what, got, getattr(da, f"gqa_{name}_plain")(*args, **kw))["max_abs_err"]
+            shape = f"q{list(args[0].shape)} cache{list(args[1].shape[1:])} {args[1].dtype}"
+        elif name == "fused_head_argmax":
+            x, head = a
+            tok, mx = dm.fused_head_argmax(x, head)
+            logits = dm.head_logits(x, head)
+            top = logits.max(-1).values
+            gap = (top - logits.gather(-1, tok.long()[:, None])[:, 0]).max().item()
+            if gap > 1e-4 * logits.abs().amax().item():
+                raise AssertionError(f"{what}: a token {gap} below the plain head's argmax")
+            err = (mx - top).abs().max().item()
+            shape = f"x{list(x.shape)}"
+            del logits
+        else:
+            got, ref = getattr(dm, name)(*a), getattr(dm, name + "_plain")(*a)
+            got, ref = ((t if isinstance(t, tuple) else (t,)) for t in (got, ref))
+            err = held_to_plain(what, torch.cat([g.flatten() for g in got]),
+                                torch.cat([r.flatten() for r in ref]))["max_abs_err"]
+            shape = f"x{list(a[0].shape)}"
+        held.setdefault(name, []).append(dict(shape=shape, max_abs_err=err))
+    seen.clear()
+    torch.cuda.empty_cache()
+    return held
+
+
+def bench_modes_path(args):
+    """The phase "bench modes": the root bench's e2e, qa, spec, serve,
+    serve_sla and ring modes through ``vggt_qwen3_tpu_torch.bench``'s mode
+    functions at full width, with the root's shapes and defaults, on one
+    seeded W8 VLM tree (Qwen3-4B W8, VGGT-1B and the Perceiver bf16; serve
+    and serve_sla take its text), ``BENCH_MODE_REPS`` timed repetitions
+    after each warm-up instead of the root's 3–5. Each mode runs with the
+    launch counters set to 0 just before it and read just after
+    (``bench_mode_launches_ok``: kernel 1's count exact), with the first
+    launch of each kernel at every shape the mode gives it copied aside and
+    held to the plain version after the run (``first_launches``,
+    ``hold_first_launches``; every kernel the mode launched is held), and
+    its output checked: tokens in the vocabulary, early-exit steps = the
+    budget and its tokens the whole query's, constrained tokens the FSM's
+    cycle, every served request's length its budget, finite latencies, the
+    ring's merge and one-rank ring within 0.05 × the output scale."""
+    import gc
+
+    import torch
+
+    from vggt_qwen3_tpu_torch import bench
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+
+    margs = {m: bench.parse_args(["--mode", m, "--seed", str(args.seed), *BENCH_MODES_ARGV]) for m in BENCH_MODES}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    params = bench.vlm_params(margs["e2e"])
+    cfg = bench.vlm_config(margs["e2e"])
+    V = cfg.text.vocab_size
+    torch.cuda.synchronize()
+    print(f"bench modes: seeded VLM weights ({cfg.text.num_layers}-layer Qwen3 {margs['e2e'].quant}, "
+          f"{cfg.vision.num_layers}-pair VGGT and the Perceiver dense) in {time.perf_counter() - t:.1f} s", flush=True)
+    out, seen = {}, {}
+    for m in BENCH_MODES:
+        kw = {} if m == "ring" else dict(params=params)
+        if m not in ("serve", "serve_sla"):
+            kw["reps"] = BENCH_MODE_REPS
+        gc.collect()
+        _zero_counters()
+        fa.fwd_copies.update(dict.fromkeys(fa.fwd_copies, 0))
+        t = time.perf_counter()
+        with first_launches(seen):
+            res = bench.MODE_FNS[m](margs[m], **kw)
+        counts = _counters()
+        secs = time.perf_counter() - t
+        print(bench.describe(res), flush=True)
+        print(f"bench modes [{m}]: {secs:.1f} s; launches {json.dumps(counts)}", flush=True)
+        bad = bench_mode_launches_ok(m, counts, res, cfg)
+        if bad:
+            raise AssertionError(f"bench modes [{m}]: launches {counts} break {bad}")
+        if any(fa.fwd_copies.values()):
+            raise AssertionError(f"bench modes [{m}]: the flash forward copied operands {fa.fwd_copies}")
+        bench_mode_output_ok(m, res, V)
+        t = time.perf_counter()
+        held = hold_first_launches(seen)
+        unheld = [n for n in PATH_KERNELS if counts[n] and n not in held]
+        if unheld:
+            raise AssertionError(f"bench modes [{m}]: no launch of {unheld} was held to its plain version")
+        print(f"bench modes [{m}]: first launch at each shape held to the plain version "
+              f"({time.perf_counter() - t:.1f} s): {json.dumps(held)}", flush=True)
+        out[m] = dict(res=bench.summary(res), counts=counts, s=secs, held=held)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_mode_output_ok(mode: str, res: dict, V: int) -> None:
+    """What a mode's output must be (``bench_modes_path``); raises if not."""
+    from vggt_qwen3_tpu_torch import bench
+
+    def in_vocab(rows):
+        return all(0 <= t < V for row in rows for t in row)
+
+    bad = []
+    if not np.isfinite(res["value"]) or res["value"] <= 0:
+        bad.append(f"metric {res['value']}")
+    if mode == "e2e":
+        toks = res["tokens"]
+        if len(toks) != 32 or not in_vocab([toks]) or res["first_token"] != toks[0]:
+            bad.append("the query's tokens")
+        for k, c in res["early_exit"].items():
+            if c["steps"] != k or res["early_exit_tokens"][k][:k] != toks[:k]:
+                bad.append(f"early exit at budget {k}: {c['steps']} steps")
+    elif mode == "qa":
+        if len(res["tokens"]) != res["batch"] or not in_vocab(res["tokens"]):
+            bad.append("the batch's tokens")
+    elif mode == "spec":
+        cyc = bench.fsm_cycle(bench.SPEC_CYCLE, V)
+        for label, r in res["runs"].items():
+            n = len(r["tokens"][0])
+            want = [cyc[i % len(cyc)] for i in range(n)]
+            if not in_vocab(r["tokens"]) or ("free" not in label and any(row != want for row in r["tokens"])):
+                bad.append(f"{label}: tokens not the FSM's cycle")
+        free, spec = res["runs"]["generate_free"]["tokens"], res["runs"]["speculative_free"]["tokens"]
+        same = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x)) for x, y in zip(free, spec)]
+        print(f"bench modes [spec]: free speculative tokens equal generate's for {same} of "
+              f"{res['new_tokens']} steps (bf16 near-ties may differ between the schedules)", flush=True)
+    elif mode in ("serve", "serve_sla"):
+        phases = [res["tokens"]] if mode == "serve" else [res["closed_tokens"]] + [r["tokens"] for r in res["loads"]]
+        for toks in phases:  # no EOS: every request runs to its budget
+            budgets = bench.serve_workload(V, len(toks), res["prompt"], res["new_tokens"], res["struct"])[1]
+            if [len(t) for t in toks] != budgets or not in_vocab(toks):
+                bad.append("a served request's tokens or length")
+        if mode == "serve_sla" and not all(np.isfinite(r[k]) for r in res["loads"]
+                                           for k in ("ttft_p50_ms", "ttft_p99_ms", "wait_p99_ms")):
+            bad.append("a latency")
+    elif mode == "ring" and not res["ok"]:
+        bad.append(f"merge max|Δ| {res['merge_max_abs_diff']}, ring max|Δ| {res['ring_max_abs_diff']}, "
+                   f"scale {res['output_scale']}")
+    if bad:
+        raise AssertionError(f"bench modes [{mode}]: {bad}")
+
+
 def main_path(args):
     """Full-width QA path through run_inference, bf16 then int8 cache."""
     import torch
@@ -3659,6 +4017,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     bwd = backward_checks(stage, gen)  # kernels 8 and 9 on kernel 1's lse
     stage2_flash = stage2_flash_check(gen)  # kernel 1 at the stage-2 training run's global shape
+    ring_flash = check_flash_ring(gen)  # kernel 1 at the root ring mode's 32-view shape
     phase_done("kernel checks")
     reference_check(args.seed)
     reference_check_w8(args.seed)
@@ -3681,6 +4040,8 @@ def main(argv=None) -> int:
     phase_done("training path")
     recipes = train_recipes_path(args)
     phase_done("training recipes")
+    modes = bench_modes_path(args)
+    phase_done("bench modes")
 
     f, d, d8 = flash["vggt_global"], decode["bf16"], attention["decode_w8"]
     lse = flash["train_global"]
@@ -3691,7 +4052,10 @@ def main(argv=None) -> int:
              lse_ms=lse["ms"], lse_library_ms=lse["library_ms"], lse_max_abs_err=lse["lse_max_abs_err"],
              training_launches=train["counts"]["flash_fwd"], serve_launches=serve["slots"]["flash_fwd"],
              stage2_shape=f2["shape"], stage2_ms=f2["ms"], stage2_plain_ms=f2["plain_ms"],
-             stage2_library_ms=f2["library_ms"], stage2_bound_ms=f2["bound_ms"], stage2_max_abs_err=f2["max_abs_err"]),
+             stage2_library_ms=f2["library_ms"], stage2_bound_ms=f2["bound_ms"], stage2_max_abs_err=f2["max_abs_err"],
+             ring_shape=ring_flash["shape"], ring_ms=ring_flash["ms"], ring_lse_ms=ring_flash["lse_ms"],
+             ring_library_ms=ring_flash["library_ms"], ring_bound_ms=ring_flash["bound_ms"],
+             ring_max_abs_err=ring_flash["max_abs_err"]),
         dict(name="decode_attention", route="cuda", source=ATTENTION_SOURCE, replaces=DECODE_REPLACES,
              launches=runs[None][1], **d, w8_shape=d8["shape"], w8_launches=w8_counts["decode_attention"],
              w8_ms=d8["ms"], w8_plain_ms=d8["plain_ms"], w8_library_ms=d8["library_ms"], w8_library=d8["library"],
@@ -3709,6 +4073,10 @@ def main(argv=None) -> int:
         kr["w8a8_bench_launches"] = w8a8_counts[kr["name"]]  # one timed W8A8 generate of quant_path
         kr["train_recipe_launches"] = recipes["recipe"]["counts"][kr["name"]]  # the bench train mode's run
         kr["stage2_launches"] = recipes["stage2"]["counts"][kr["name"]]  # the stage-2 run's 2 micro steps
+        kr["bench_modes_launches"] = {m: r["counts"][kr["name"]] for m, r in modes.items()}  # each mode's run
+        # each mode's first launches at each of its shapes, held to the plain version: [shapes, max_abs_err]
+        kr["bench_modes_held"] = {m: [len(h), max(x["max_abs_err"] for x in h)]
+                                  for m, r in modes.items() if (h := r["held"].get(kr["name"]))}
     not_below_bound("flash_fwd (stage-2 global shape)", f2["ms"], f2["bound_ms"])
     not_below_bound("decode_attention (W8 shape)", d8["ms"], d8["bound_ms"])
     print(f"int8-cache run launches: flash {runs['int8'][0]}, decode {runs['int8'][1]}", flush=True)
@@ -3723,6 +4091,8 @@ def main(argv=None) -> int:
     print(f"training recipes: bench train mode {json.dumps({k: r[k] for k in keys})}; "
           f"stage 2 walls {recipes['stage2']['walls']}, peak {recipes['stage2']['peak_gib']:.2f} GiB; 8-bit update "
           f"card vs CPU {json.dumps(recipes['adam8bit_check'])}", flush=True)
+    metrics = {m: dict(metric=r["res"]["metric"], value=r["res"]["value"], s=r["s"]) for m, r in modes.items()}
+    print(f"bench modes: {json.dumps(metrics)}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s, by phase {json.dumps(phases)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -8,13 +8,16 @@ kernel when H ≠ 518), per-frame camera and register tokens (separate
 embeddings for the first frame), then ``num_layers`` pairs of frame-wise
 ([B·S, T, E]) and global ([B, S·T, E]) blocks with 2-D RoPE on the patch
 tokens (1-based coordinates, specials at (0, 0)). The last pair's frame and
-global outputs are concatenated → [B, S, T, 2E].
+global outputs are concatenated → [B, S, T, 2E] (every pair's with
+``return_all_layers``).
 
 Every block's attention is ``ops.flash_attention.flash_attention``: the
 flash kernel on the card (D = 64 at VGGT-1B), its plain version on the CPU.
 The four block projections go through ``ops.quant.linear``: dense weights,
 or the W8 ``{"w8", "scale"}`` dicts of ``vlm.quantize_vision`` (dequantize,
-then one matmul — plain XLA in JAX).
+then one matmul — plain XLA in JAX). With ``ring_group`` the global blocks'
+attention is ring attention over that process group's ranks instead (the
+JAX module's ``ring_mesh``/``ring_axis``).
 
 :func:`convert_torch_state_dict` maps a public VGGT checkpoint
 (``aggregator.*`` keys) into this layout, as the JAX module's converter does.
@@ -30,6 +33,7 @@ once. Without recompute the activations of the 72 blocks at B = 2, 8 views,
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -41,6 +45,7 @@ from ..config import VGGTConfig
 from ..ops import quant
 from ..ops.flash_attention import flash_attention
 from ..ops.norms import layer_norm
+from ..ops.ring_attention import ring_attention_sharded
 from ..ops.rope2d import apply_rope2d, rope2d_cos_sin
 from .common import as_f32, layer_views, leaf, normal, remat, torch_dtype
 
@@ -98,8 +103,11 @@ def init_params(gen: torch.Generator, cfg: VGGTConfig, dtype: Optional[str] = No
     }
 
 
-def _vit_block(x, bp, num_heads, eps, *, cos=None, sin=None, rot_mask=None):
-    """Pre-LN ViT block with LayerScale; optional 2-D rope on q/k."""
+def _vit_block(x, bp, num_heads, eps, *, cos=None, sin=None, rot_mask=None, attend_fn=None):
+    """Pre-LN ViT block with LayerScale; optional 2-D rope on q/k.
+
+    ``attend_fn`` replaces the attention (default: the flash forward): the
+    ring-attention hook of sequence-sharded global attention."""
     B, T, E = x.shape
     hd = E // num_heads
     h = layer_norm(x, bp["ln1_w"], bp["ln1_b"], eps)
@@ -108,17 +116,19 @@ def _vit_block(x, bp, num_heads, eps, *, cos=None, sin=None, rot_mask=None):
     if cos is not None:
         q = apply_rope2d(q, cos, sin, rot_mask)
         k = apply_rope2d(k, cos, sin, rot_mask)
-    attn = flash_attention(q, k, v).reshape(B, T, E)
+    attn = (attend_fn or flash_attention)(q, k, v).reshape(B, T, E)
     x = x + bp["ls1"] * (quant.linear(attn, bp["proj_w"]) + bp["proj_b"])
     h = layer_norm(x, bp["ln2_w"], bp["ln2_b"], eps)
     h = F.gelu(quant.linear(h, bp["mlp_w1"]) + bp["mlp_b1"])  # exact erf GELU
     return x + bp["ls2"] * (quant.linear(h, bp["mlp_w2"]) + bp["mlp_b2"])
 
 
-def _pair(x, fbp, gbp, B, S, T, E, num_heads, eps, cos_frame, sin_frame, cos_global, sin_global):
+def _pair(x, fbp, gbp, B, S, T, E, num_heads, eps, cos_frame, sin_frame, cos_global, sin_global,
+          global_attend=None):
     """One frame block then one global block: (new x, the frame output)."""
     x = _vit_block(x, fbp, num_heads, eps, cos=cos_frame, sin=sin_frame)
-    xg = _vit_block(x.reshape(B, S * T, E), gbp, num_heads, eps, cos=cos_global, sin=sin_global)
+    xg = _vit_block(x.reshape(B, S * T, E), gbp, num_heads, eps, cos=cos_global, sin=sin_global,
+                    attend_fn=global_attend)
     return xg.reshape(B * S, T, E), x
 
 
@@ -190,13 +200,22 @@ def _patch_backbone(params: Params, cfg: VGGTConfig, frames: torch.Tensor) -> to
     return x[:, 1 + cfg.num_register_tokens :]
 
 
-def aggregator(params: Params, cfg: VGGTConfig, images: torch.Tensor) -> Tuple[List[torch.Tensor], int]:
+def aggregator(params: Params, cfg: VGGTConfig, images: torch.Tensor, *, return_all_layers: bool = False,
+               ring_group=None) -> Tuple[List[torch.Tensor], int]:
     """VGGT aggregator forward.
 
     Args:
         images: [B, S, 3, H, W], values in [0, 1].
+        return_all_layers: every pair's concat output (the reference's
+            downstream heads read intermediate layers); by default the last
+            pair's only. The list's ``[-1]`` is the same either way.
+        ring_group: a ``torch.distributed`` process group: global attention
+            then runs as ring attention with the S·T sequence sharded over
+            its ranks (``ops/ring_attention.ring_attention_sharded``; S·T
+            must divide by the group's size). Forward only.
     Returns:
-        ([last pair's concat output [B, S, T, 2E]], patch_start_idx)
+        ([concat output [B, S, T, 2E] of the last pair, or of every pair],
+        patch_start_idx)
     """
     B, S, C, H, W = images.shape
     dev = images.device
@@ -226,13 +245,16 @@ def aggregator(params: Params, cfg: VGGTConfig, images: torch.Tensor) -> Tuple[L
     sin_global = sin_f.repeat(1, S, 1).expand(B, -1, -1)
 
     eps = cfg.layer_norm_eps
+    global_attend = None if ring_group is None else functools.partial(ring_attention_sharded, group=ring_group)
     fb = layer_views(params["frame_blocks"], cfg.num_layers)
     gb = layer_views(params["global_blocks"], cfg.num_layers)
-    for fbp, gbp in zip(fb, gb):
+    outs = []
+    for i, (fbp, gbp) in enumerate(zip(fb, gb)):
         x, frame_out = remat(_pair, x, fbp, gbp, B, S, T, E, cfg.num_heads, eps, cos_frame, sin_frame,
-                              cos_global, sin_global)
-    concat = torch.cat([frame_out, x], dim=-1)
-    return [concat.reshape(B, S, T, 2 * E)], psi
+                              cos_global, sin_global, global_attend)
+        if return_all_layers or i == cfg.num_layers - 1:
+            outs.append(torch.cat([frame_out, x], dim=-1).reshape(B, S, T, 2 * E))
+    return outs, psi
 
 
 # torch block names of each stacked leaf; the four projections are [out, in]

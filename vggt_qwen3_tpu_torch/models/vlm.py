@@ -98,19 +98,21 @@ def mock_aggregator(cfg: VLMConfig, images: torch.Tensor) -> Tuple[list, int]:
 
 
 def encode_images(params: Params, cfg: VLMConfig, images: torch.Tensor, *,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None, ring_group=None) -> torch.Tensor:
     """[B, V, 3, H, W] in [0, 1] → [B, num_vis_tokens, text_hidden].
 
     Under ``cfg.freeze_vision`` no gradient enters the tower: it runs under
-    ``torch.no_grad()``. ``generator`` enables the Perceiver's dropout."""
+    ``torch.no_grad()``. ``generator`` enables the Perceiver's dropout.
+    ``ring_group``: VGGT's global attention as ring attention over that
+    process group (``vggt.aggregator``; the >16-view scale-out)."""
     B = images.shape[0]
     if cfg.vision_backbone == "mock":
         tokens_list, _ = mock_aggregator(cfg, images)
     elif cfg.freeze_vision:
         with torch.no_grad():
-            tokens_list, _ = vggt.aggregator(params["vision"], cfg.vision, images)
+            tokens_list, _ = vggt.aggregator(params["vision"], cfg.vision, images, ring_group=ring_group)
     else:
-        tokens_list, _ = vggt.aggregator(params["vision"], cfg.vision, images)
+        tokens_list, _ = vggt.aggregator(params["vision"], cfg.vision, images, ring_group=ring_group)
     agg = tokens_list[-1]
     agg = agg.reshape(B, -1, agg.shape[-1])[:, : cfg.num_vis_tokens, :]
     if cfg.freeze_vision:
