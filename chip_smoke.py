@@ -73,8 +73,10 @@ Run from the root of a checkout. It:
    admission, plain and speculative chunks; the same rule per request); and
    the training step (bf16, the tower unfrozen, 4 micro
    steps at grad_accum 2: losses, grad norms, the vision gradients, the
-   updates), then saves and restores that train state and checks the next
-   steps; and the W8A8 and W4 modes (``reference_check_quant``: the W8A8
+   updates), the same 4 micro steps on the card through the meshed step of
+   a 1-rank NCCL world (``state_shardings`` on ``build_mesh(None)``: bit for
+   bit the unmeshed card run's losses, grad norms and parameters), then
+   saves and restores that train state and checks the next steps; and the W8A8 and W4 modes (``reference_check_quant``: the W8A8
    int32 product and output bit for bit at 1, 8, 17 and 368 rows, W4
    ``linear`` by ``utils.agreement``, penalised ``generate_text`` tokens);
 5. drives the QA path at full width — Qwen3-4B, VGGT-1B, the perceiver_small
@@ -157,7 +159,11 @@ Run from the root of a checkout. It:
    and its recompute), finite losses, frozen leaves bit-identical, and every
    trainable leaf changed unless its update is under half a bf16 ulp
    everywhere; micro-step wall time, tokens/s, peak memory and a profile of
-   one micro step with its update;
+   one micro step with its update. Every step runs through the meshed step
+   (``make_train_step(state_sharding=state_shardings(state,
+   build_mesh(None)))``) on a 1-rank NCCL world; then one call of the sft
+   CLI (``train.sft.main(... --fsdp 1 --tiny --mock_vision --max_steps 2
+   --device cuda)``) checks its mesh wiring on NCCL;
 9b. the training recipes (``train_recipes_path``): (a) the bench's train
    mode (``bench.train_setup`` / ``train_micro`` / ``train_measure``) at the
    stage-1 recipe's micro batch (``recipe_stage``: B 6, 8 views × 448², text
@@ -1671,8 +1677,27 @@ def _fingerprint(t):
     an element changes it."""
     import torch
 
+    t = local(t)
     w = t.detach().contiguous().view(torch.uint8 if t.element_size() == 1 else torch.int16).to(torch.int64)
     return int(w.sum()), int((w * w).sum())
+
+
+def local(t):
+    """A DTensor's local tensor (on a 1-rank mesh, the whole); anything else as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """``build_mesh(None)`` on a world of this process alone (NCCL, no
+    address), destroyed on exit."""
+    from vggt_qwen3_tpu_torch.ops.ring_attention import single_rank_group
+    from vggt_qwen3_tpu_torch.parallel.mesh import build_mesh
+
+    with single_rank_group("cuda"):
+        yield build_mesh(None, "cuda")
 
 
 def _small_train_stage():
@@ -1718,6 +1743,7 @@ def reference_check_train(seed: int):
     import shutil
 
     import torch
+    from torch.distributed.tensor import DTensor
 
     from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
     from vggt_qwen3_tpu_torch.ops import flash_attention as fa
@@ -1731,22 +1757,24 @@ def reference_check_train(seed: int):
     batches = [next(loader) for _ in range(6)]
     cpu, cpu_tx = trainer.init_train_state(torch.Generator().manual_seed(seed), st, dtype="bfloat16")
     card_params = _to_device(cpu.params, "cuda")
+    meshed_params = _to_device(cpu.params, "cuda")
     card_tx = trainer.make_tx(st, card_params)
     card = trainer.TrainState(params=card_params, opt_state=card_tx.init(card_params), step=0)
     init = {n: t.clone() for n, t in trainer.named_leaves(cpu.params)}
 
-    def run(state, tx, dev, steps):
+    def run(state, tx, dev, steps, sharding=None):
         grads, metrics = {}, []
         real = tx.update
 
         def capture(g, opt_state, params):
             if not grads:
-                grads.update({n: t.float().cpu() for n, t in g.items() if n.startswith("vision/") and t is not None})
+                grads.update({n: local(t).float().cpu() for n, t in g.items()
+                              if n.startswith("vision/") and t is not None})
             return real(g, opt_state, params)
 
         tx.update = capture
         try:
-            step = trainer.make_train_step(st, tx, img_id, has_geom=True)
+            step = trainer.make_train_step(st, tx, img_id, has_geom=True, state_sharding=sharding)
             for s in steps:
                 state, m = step(state, sft.to_device(batches[s], dev), None)
                 metrics.append((float(m["loss"]), float(m["grad_norm"])))
@@ -1795,6 +1823,26 @@ def reference_check_train(seed: int):
             and worst_steps <= 2.0 * 1.5):
         raise AssertionError("training reference check: card and CPU disagree")
 
+    # the same micro steps on a 1-rank NCCL mesh: every gather and reduction is the identity
+    with one_rank_mesh() as mesh:
+        tx = trainer.make_tx(st, meshed_params)
+        meshed = trainer.TrainState(params=meshed_params, opt_state=tx.init(meshed_params), step=0)
+        sharding = trainer.state_shardings(meshed, mesh)
+        n0 = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        meshed, meshed_g, meshed_m = run(meshed, tx, "cuda", range(4), sharding)
+        torch.cuda.synchronize()
+        meshed_launches = (fa.launches - n0[0], fa.dq_launches - n0[1], fa.dkv_launches - n0[2])
+        placed = sum(isinstance(p, DTensor) for _, p in trainer.named_leaves(meshed.params))
+        differ = [n for (n, a), (_, b) in zip(trainer.named_leaves(meshed.params), trainer.named_leaves(card.params))
+                  if not torch.equal(local(a), b)]
+        differ += [f"gradient {n}" for n in card_g if not torch.equal(meshed_g[n], card_g[n])]
+    print(f"training reference check, meshed (1-rank NCCL world, {placed} DTensor leaves): losses/grad norms "
+          f"{meshed_m == card_m}, {len(differ)} leaves or gradients differ from the unmeshed card run; launches "
+          f"{meshed_launches}", flush=True)
+    if meshed_m != card_m or differ or meshed_launches != card_launches or placed == 0:
+        raise AssertionError(f"training reference check: the 1-rank meshed step is not the unmeshed one bit for bit "
+                             f"({meshed_m} vs {card_m}; {differ[:5]})")
+
     # save, restore, and the same next two micro steps
     out = REPO / "ckpts" / "chip_smoke_train"
     shutil.rmtree(out, ignore_errors=True)
@@ -1830,15 +1878,15 @@ def train_path(args):
     views, make_train_step, step_generator): (a) the recipe as shipped, the
     tower frozen, 2 micro steps; (b) freeze_vision false, 4 micro steps (2
     updates). Launch counters are set to 0 just before and read just after
-    each micro step and each run. Returns (b)'s per-run counts and numbers."""
-    import dataclasses
+    each micro step and each run. Each run's state is laid out on a 1-rank
+    NCCL mesh (``state_shardings`` on ``build_mesh(None)``) and its steps
+    run through ``make_train_step(state_sharding=...)``. Then the sft CLI
+    once (``sft_cli_check``). Returns (b)'s per-run counts and numbers."""
     import gc
 
     import torch
 
     from vggt_qwen3_tpu_torch.data.tokenizer import load_tokenizer
-    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
-    from vggt_qwen3_tpu_torch.train import sft, trainer
 
     tok = load_tokenizer(None)
     img_id = tok.convert_tokens_to_ids("<image>")
@@ -1847,100 +1895,147 @@ def train_path(args):
     blocks = vc.patch_depth + 2 * vc.num_layers  # 72 attentions a forward
     result = {}
     for frozen, n_micro in ((True, 2), (False, 2 * TRAIN_GRAD_ACCUM)):
-        st = dataclasses.replace(base, model=dataclasses.replace(base.model, freeze_vision=frozen))
-        what = "recipe as shipped (tower frozen)" if frozen else "freeze_vision false"
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        state, tx = trainer.init_train_state(torch.Generator(device="cuda").manual_seed(args.seed), st,
-                                             dtype=st.model.dtype)
-        torch.cuda.synchronize()
-        leaves = dict(trainer.named_leaves(state.params))
-        n_params = sum(p.numel() for p in leaves.values())
-        n_train = sum(p.numel() for n, p in leaves.items() if tx.labels[n] != "frozen")
-        print(f"training ({what}): random init of {n_params / 1e9:.3f} B params ({n_train / 1e9:.3f} B trainable) "
-              f"in {time.perf_counter() - t:.1f} s, memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
-        prints = {n: _fingerprint(p) for n, p in leaves.items()}
-        lora_frozen = {n: [_fingerprint(p[i]) for i in st.freeze_text_layers]
-                       for n, p in leaves.items() if n.startswith("text/layers/lora/")}
-        min_abs = {n: p.abs().min().item() for n, p in leaves.items() if tx.labels[n] != "frozen"}
-        loader = sft.build_data(st, tok, datasets=seeded_datasets(st, args.seed))
-        step_fn = trainer.make_train_step(st, tx, img_id, has_geom=True)
-        walls, per_step, metrics, tokens = [], [], [], []
-        run_counts = dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0)
-        for s in range(n_micro):
-            batch = sft.to_device(next(loader), "cuda")
-            gen = trainer.step_generator(st.train.seed + 1, s, "cuda")
-            torch.cuda.synchronize()
-            fa.launches = fa.dq_launches = fa.dkv_launches = 0
-            fa.fwd_copies.update(dict.fromkeys(fa.fwd_copies, 0))
-            t = time.perf_counter()
-            state, m = step_fn(state, batch, gen)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
-            counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
-            per_step.append(counts)
-            for k, c in zip(run_counts, counts):
-                run_counts[k] += c
-            metrics.append((float(m["loss"]), float(m["grad_norm"])))
-            tokens.append((int(batch["input_ids"].numel()), int(batch["attention_mask"].sum())))
-        want = (blocks, 0, 0) if frozen else (2 * blocks, blocks, blocks)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        steady = walls[1:] or walls
-        mean = sum(steady) / len(steady)
-        print(f"training ({what}): {n_micro} micro steps of {TRAIN_BATCH} rows x {st.data.num_views} views "
-              f"x {st.data.image_size}^2, text {tokens[0][0] // TRAIN_BATCH} tokens a row; walls "
-              f"{[round(w, 3) for w in walls]} s; launches a micro step (flash fwd, dq, dkv) {per_step}; "
-              f"loss/grad_norm {metrics}; peak memory {peak:.2f} GiB", flush=True)
-        if any(c != want for c in per_step):
-            raise AssertionError(f"training ({what}): launches a micro step {per_step}, expected {want}")
-        if any(fa.fwd_copies.values()):  # of the last micro step
-            raise AssertionError(f"training ({what}): the flash forward copied operands {fa.fwd_copies}")
-        if not all(np.isfinite(x) for m in metrics for x in m):
-            raise AssertionError(f"training ({what}): loss or grad_norm not finite: {metrics}")
-        if state.opt_state["gradient_step"] != n_micro // TRAIN_GRAD_ACCUM:
-            raise AssertionError(f"training ({what}): {state.opt_state['gradient_step']} updates")
-        leaves = dict(trainer.named_leaves(state.params))
-        for n, p in leaves.items():
-            if tx.labels[n] == "frozen" and _fingerprint(p) != prints[n]:
-                raise AssertionError(f"training ({what}): frozen leaf {n} changed")
-        for n, fps in lora_frozen.items():
-            if [_fingerprint(leaves[n][i]) for i in st.freeze_text_layers] != fps:
-                raise AssertionError(f"training ({what}): the adapters of a frozen layer changed ({n})")
-        if not frozen:
-            # a trainable leaf may stay unchanged only where its update is under half a bf16
-            # ulp everywhere: no gradient reached it (LoRA's A while B is still 0: its step
-            # is the weight decay alone), or no element is small enough for a step of the
-            # group's size (|p| > 768·lr puts 1.5·lr under half an ulp: norm weights, LayerScale)
-            lr = {"base": st.train.lr, "proj": st.train.proj_lr}
-            moved = [n for n, p in leaves.items() if tx.labels[n] != "frozen" and _fingerprint(p) != prints[n]]
-            still = [n for n in min_abs if n not in moved]
-            no_grad = [n for n in still if not state.opt_state["mu"][n].any()]
-            bad = [n for n in still if n not in no_grad and min_abs[n] <= 768 * lr[tx.labels[n]]]
-            print(f"training ({what}): {len(moved)} of {len(min_abs)} trainable leaves changed; unchanged with no "
-                  f"gradient yet: {no_grad}; unchanged, every element's step under half a bf16 ulp: "
-                  f"{[n for n in still if n not in no_grad]}", flush=True)
-            if bad:
-                raise AssertionError(f"training ({what}): trainable leaves unchanged after the updates: {bad}")
-            result.update(counts=run_counts, per_step=per_step[0], walls=walls, mean_s=mean, peak_gib=peak,
-                          tokens_per_s=TRAIN_BATCH * (tokens[0][0] // TRAIN_BATCH) / mean,
-                          valid_tokens_per_s=sum(v for _, v in tokens[1:] or tokens) / sum(steady),
-                          views_per_s=TRAIN_BATCH * st.data.num_views / mean)
-            print(f"training ({what}): micro step {mean:.3f} s (mean of the synchronised walls after the first), "
-                  f"{result['tokens_per_s']:.1f} text tokens/s padded, {result['valid_tokens_per_s']:.1f} unpadded, "
-                  f"{result['views_per_s']:.2f} views/s; launches in the run {json.dumps(run_counts)}", flush=True)
-            # one more update's pair of micro steps: the second, which runs the optimizer, under the profiler
-            state, _ = step_fn(state, sft.to_device(next(loader), "cuda"),
-                               trainer.step_generator(st.train.seed + 1, n_micro, "cuda"))
-            batch = sft.to_device(next(loader), "cuda")
-            gen = trainer.step_generator(st.train.seed + 1, n_micro + 1, "cuda")
-            profile_breakdown("training micro step (freeze_vision false, with the update)",
-                              lambda: step_fn(state, batch, gen), unprofiled_s=mean, range_family="optimizer")
-        del state, tx, leaves, loader, step_fn
+        with one_rank_mesh() as mesh:
+            train_run(args, base, frozen, n_micro, mesh, tok, img_id, blocks, result)
     gc.collect()
     torch.cuda.empty_cache()
+    sft_cli_check(args)
     return result
+
+
+def train_run(args, base, frozen: bool, n_micro: int, mesh, tok, img_id: int, blocks: int, result: dict):
+    """One run of ``train_path`` on ``mesh``; (b)'s numbers go into ``result``."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from vggt_qwen3_tpu_torch.ops import flash_attention as fa
+    from vggt_qwen3_tpu_torch.train import sft, trainer
+
+    st = dataclasses.replace(base, model=dataclasses.replace(base.model, freeze_vision=frozen))
+    what = "recipe as shipped (tower frozen)" if frozen else "freeze_vision false"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state, tx = trainer.init_train_state(torch.Generator(device="cuda").manual_seed(args.seed), st,
+                                         dtype=st.model.dtype)
+    shardings = trainer.state_shardings(state, mesh)
+    trainer.shard_state(state, shardings)
+    torch.cuda.synchronize()
+    leaves = {n: local(p) for n, p in trainer.named_leaves(state.params)}
+    n_params = sum(p.numel() for p in leaves.values())
+    n_train = sum(p.numel() for n, p in leaves.items() if tx.labels[n] != "frozen")
+    print(f"training ({what}): random init of {n_params / 1e9:.3f} B params ({n_train / 1e9:.3f} B trainable) "
+          f"in {time.perf_counter() - t:.1f} s, memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    prints = {n: _fingerprint(p) for n, p in leaves.items()}
+    lora_frozen = {n: [_fingerprint(p[i]) for i in st.freeze_text_layers]
+                   for n, p in leaves.items() if n.startswith("text/layers/lora/")}
+    min_abs = {n: p.abs().min().item() for n, p in leaves.items() if tx.labels[n] != "frozen"}
+    loader = sft.build_data(st, tok, datasets=seeded_datasets(st, args.seed))
+    step_fn = trainer.make_train_step(st, tx, img_id, has_geom=True, state_sharding=shardings)
+    walls, per_step, metrics, tokens = [], [], [], []
+    run_counts = dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0)
+    for s in range(n_micro):
+        batch = sft.to_device(next(loader), "cuda")
+        gen = trainer.step_generator(st.train.seed + 1, s, "cuda")
+        torch.cuda.synchronize()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        fa.fwd_copies.update(dict.fromkeys(fa.fwd_copies, 0))
+        t = time.perf_counter()
+        state, m = step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        per_step.append(counts)
+        for k, c in zip(run_counts, counts):
+            run_counts[k] += c
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        tokens.append((int(batch["input_ids"].numel()), int(batch["attention_mask"].sum())))
+    want = (blocks, 0, 0) if frozen else (2 * blocks, blocks, blocks)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = walls[1:] or walls
+    mean = sum(steady) / len(steady)
+    print(f"training ({what}): {n_micro} micro steps of {TRAIN_BATCH} rows x {st.data.num_views} views "
+          f"x {st.data.image_size}^2, text {tokens[0][0] // TRAIN_BATCH} tokens a row; walls "
+          f"{[round(w, 3) for w in walls]} s; launches a micro step (flash fwd, dq, dkv) {per_step}; "
+          f"loss/grad_norm {metrics}; peak memory {peak:.2f} GiB", flush=True)
+    if any(c != want for c in per_step):
+        raise AssertionError(f"training ({what}): launches a micro step {per_step}, expected {want}")
+    if any(fa.fwd_copies.values()):  # of the last micro step
+        raise AssertionError(f"training ({what}): the flash forward copied operands {fa.fwd_copies}")
+    if not all(np.isfinite(x) for m in metrics for x in m):
+        raise AssertionError(f"training ({what}): loss or grad_norm not finite: {metrics}")
+    if state.opt_state["gradient_step"] != n_micro // TRAIN_GRAD_ACCUM:
+        raise AssertionError(f"training ({what}): {state.opt_state['gradient_step']} updates")
+    leaves = {n: local(p) for n, p in trainer.named_leaves(state.params)}
+    for n, p in leaves.items():
+        if tx.labels[n] == "frozen" and _fingerprint(p) != prints[n]:
+            raise AssertionError(f"training ({what}): frozen leaf {n} changed")
+    for n, fps in lora_frozen.items():
+        if [_fingerprint(leaves[n][i]) for i in st.freeze_text_layers] != fps:
+            raise AssertionError(f"training ({what}): the adapters of a frozen layer changed ({n})")
+    if not frozen:
+        # a trainable leaf may stay unchanged only where its update is under half a bf16
+        # ulp everywhere: no gradient reached it (LoRA's A while B is still 0: its step
+        # is the weight decay alone), or no element is small enough for a step of the
+        # group's size (|p| > 768·lr puts 1.5·lr under half an ulp: norm weights, LayerScale)
+        lr = {"base": st.train.lr, "proj": st.train.proj_lr}
+        moved = [n for n, p in leaves.items() if tx.labels[n] != "frozen" and _fingerprint(p) != prints[n]]
+        still = [n for n in min_abs if n not in moved]
+        no_grad = [n for n in still if not local(state.opt_state["mu"][n]).any()]
+        bad = [n for n in still if n not in no_grad and min_abs[n] <= 768 * lr[tx.labels[n]]]
+        print(f"training ({what}): {len(moved)} of {len(min_abs)} trainable leaves changed; unchanged with no "
+              f"gradient yet: {no_grad}; unchanged, every element's step under half a bf16 ulp: "
+              f"{[n for n in still if n not in no_grad]}", flush=True)
+        if bad:
+            raise AssertionError(f"training ({what}): trainable leaves unchanged after the updates: {bad}")
+        result.update(counts=run_counts, per_step=per_step[0], walls=walls, mean_s=mean, peak_gib=peak,
+                      tokens_per_s=TRAIN_BATCH * (tokens[0][0] // TRAIN_BATCH) / mean,
+                      valid_tokens_per_s=sum(v for _, v in tokens[1:] or tokens) / sum(steady),
+                      views_per_s=TRAIN_BATCH * st.data.num_views / mean)
+        print(f"training ({what}): micro step {mean:.3f} s (mean of the synchronised walls after the first), "
+              f"{result['tokens_per_s']:.1f} text tokens/s padded, {result['valid_tokens_per_s']:.1f} unpadded, "
+              f"{result['views_per_s']:.2f} views/s; launches in the run {json.dumps(run_counts)}", flush=True)
+        # one more update's pair of micro steps: the second, which runs the optimizer, under the profiler
+        state, _ = step_fn(state, sft.to_device(next(loader), "cuda"),
+                           trainer.step_generator(st.train.seed + 1, n_micro, "cuda"))
+        batch = sft.to_device(next(loader), "cuda")
+        gen = trainer.step_generator(st.train.seed + 1, n_micro + 1, "cuda")
+        profile_breakdown("training micro step (freeze_vision false, with the update)",
+                          lambda: step_fn(state, batch, gen), unprofiled_s=mean, range_family="optimizer")
+    del state, tx, leaves, loader, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sft_cli_check(args):
+    """One call of the sft CLI on the card — ``--fsdp 1 --tiny --mock_vision
+    --max_steps 2`` on ``configs/stage1_3d.yaml`` — for its mesh wiring on
+    NCCL: the mesh line printed, two finite losses logged, the final
+    checkpoint written, and no process group left behind."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from vggt_qwen3_tpu_torch.train import sft
+
+    out = REPO / "ckpts" / "chip_smoke_sft"
+    shutil.rmtree(out, ignore_errors=True)
+    t = time.perf_counter()
+    try:
+        sft.main(["--config", str(REPO / "configs" / "stage1_3d.yaml"), "--output_dir", str(out), "--data_root",
+                  str(REPO), "--fsdp", "1", "--tiny", "--mock_vision", "--max_steps", "2", "--log_every_steps", "1",
+                  "--seed", str(args.seed), "--device", "cuda"])
+        losses = [json.loads(x)["loss"] for x in (out / "metrics.jsonl").read_text().splitlines()]
+        saved = (out / "step_2" / "params.pt").is_file()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"sft CLI (--fsdp 1 --tiny --mock_vision, 2 steps on a 1-rank NCCL world): losses {losses}, checkpoint "
+          f"written {saved}, {time.perf_counter() - t:.1f} s", flush=True)
+    if len(losses) != 2 or not all(np.isfinite(losses)) or not saved or dist.is_initialized():
+        raise AssertionError("sft CLI: the run did not log two finite losses and save its checkpoint")
 
 
 RECIPE_CYCLE = 2  # micro steps in the recipe phase's timed cycle (the recipe accumulates 32)

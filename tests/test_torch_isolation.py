@@ -16,7 +16,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vggt_qwen3_tpu")
 
 
 def _port_files():
-    return sorted((REPO / "vggt_qwen3_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # the rank scripts of the multi-process tests run the port alone, so they import no JAX either
+    return sorted((REPO / "vggt_qwen3_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + [
+        REPO / "tests" / name for name in ("torch_ring_ranks.py", "torch_parallel_ranks.py")]
 
 
 def _imported_modules(path: Path):
@@ -31,6 +33,11 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_the_scan_covers_the_parallel_modules():
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {f"vggt_qwen3_tpu_torch/parallel/{m}.py" for m in ("mesh", "sharding", "pipeline", "multihost")} <= scanned
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):

@@ -146,14 +146,22 @@ def test_one_rank_ring_is_the_direct_forward_bit_for_bit(dtype):
 
 
 def test_ring_sharded_refuses_gradients_and_ragged_lengths(monkeypatch):
-    q = torch.zeros(1, 6, 2, 16, requires_grad=True)
+    """Gradients now flow through ``ring_attention_sharded`` (the several-rank
+    case is held to JAX in ``tests/test_torch_parallel.py``): over one rank,
+    with and without ``rows_sharded``, they are the direct flash backward's
+    bit for bit. Ragged lengths are still refused before any communication."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v, w = (torch.randn(2, 6, 2, 16, generator=g) for _ in range(4))
+    direct = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (pflash.flash_attention(*direct) * w).sum().backward()
     with pring.single_rank_group("cpu") as group:
-        with pytest.raises(NotImplementedError, match="forward-only"):
-            pring.ring_attention_sharded(q, q, q, group=group)
-        # lengths that do not divide by the group's size are refused before any communication
+        for rows_sharded in (False, True):
+            ring = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            (pring.ring_attention_sharded(*ring, group=group, rows_sharded=rows_sharded) * w).sum().backward()
+            assert all(torch.equal(a.grad, b.grad) for a, b in zip(ring, direct))
         monkeypatch.setattr(pring.dist, "get_world_size", lambda group=None: 4)
         with pytest.raises(ValueError, match="must divide"):
-            pring.ring_attention_sharded(q.detach(), q.detach(), q.detach(), group=group)
+            pring.ring_attention_sharded(q, q, q, group=group)
 
 
 def test_aggregator_return_all_layers_matches_jax():

@@ -128,9 +128,26 @@ def test_perceiver_without_a_generator_is_jax_eval():
 
 
 def test_parallel_flags_and_adamw8bit_raise_naming_the_roadmap(tmp_path):
-    for flag in (["--fsdp", "8"], ["--tp", "2"], ["--ring"], ["--multihost"], ["--pp", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP: parallelism"):
-            sft.parse_args(["--config", "c.yaml", "--output_dir", str(tmp_path), *flag])
+    """The JAX CLI's mesh and launch flags parse (parallelism is ported: see
+    ROADMAP, parallelism) and raise where JAX raises: a mesh the world does
+    not fit, a ring over an axis of one rank. adamw8bit builds; an unknown
+    optimizer raises."""
+    args = sft.parse_args(["--config", "c.yaml", "--output_dir", str(tmp_path), "--dp", "2", "--fsdp", "2", "--tp",
+                           "2", "--pp", "2", "--pp_microbatches", "4", "--ring", "--multihost",
+                           "--coordinator_address", "127.0.0.1:1234", "--num_processes", "16", "--process_id", "3"])
+    assert (args.dp, args.fsdp, args.tp, args.pp, args.pp_microbatches, args.ring, args.multihost,
+            args.coordinator_address, args.num_processes, args.process_id) == (
+        2, 2, 2, 2, 4, "fsdp", True, "127.0.0.1:1234", 16, 3)
+    assert sft.parse_args(["--config", "c.yaml", "--output_dir", "o", "--ring", "tp"]).ring == "tp"
+    toy = ["--config", str(REPO / "configs/toy.yaml"), "--tiny", "--mock_vision", "--device", "cpu",
+           "--data_root", str(REPO), "--max_steps", "2"]
+    stage = sft.build_stage(sft.parse_args([*toy, "--output_dir", "o", "--fsdp", "8", "--pp_microbatches", "6"]), 1)
+    assert stage.mesh.shape == (1, 8, 1, 1) and stage.train.pp_microbatches == 6
+    with pytest.raises(ValueError, match=r"mesh \(1, 8, 1, 1\) needs 8 devices, have 1"):
+        sft.main([*toy, "--output_dir", str(tmp_path / "a"), "--fsdp", "8"])
+    with pytest.raises(ValueError, match="ring axis 'fsdp' has extent < 2"):
+        sft.main([*toy, "--output_dir", str(tmp_path / "b"), "--ring"])
+    assert not torch.distributed.is_initialized()  # the world made for each run is gone
     stage = sft.build_stage(sft.parse_args(["--config", str(REPO / "configs/stage1_3d.yaml"),
                                             "--output_dir", str(tmp_path), "--tiny"]))
     # adamw8bit is ported (train/adam8bit.py): it builds; an unknown optimizer raises

@@ -1,0 +1,250 @@
+"""One rank of the port's parallelism checks on the CPU (gloo), started by
+``tests/test_torch_parallel.py`` once per rank:
+
+    python tests/torch_parallel_ranks.py RANK WORLD DIR
+
+It joins the world through a file store in DIR, runs each check on its
+``DIR/inputs_<check>.pt`` (numpy-seeded inputs, weights converted from the
+JAX package's, the port's configs) as soon as the test has written it, and
+writes ``DIR/rank<RANK>.pt``:
+
+- ``pipeline``: ``pipeline_decoder`` on ``(tp, pp)`` meshes ``(4, 2)`` and
+  ``(2, 4)`` — the forward for each ``(pp, M)``, the gradients of
+  ``mean(out²)`` over the layers and ``h``, the forward over stage-sharded
+  params, ``forward_hidden(pipeline=...)``, the divisibility errors;
+- ``train``: micro steps of ``make_train_step`` on ``dp2·tp2·pp2`` from the
+  global batches' rows of this rank, with and without LoRA (loss,
+  ``grad_norm``, the full params after); the last state saved, restored on
+  ``fsdp4·tp2`` (each full tensor bit for bit) and stepped once more on both
+  meshes;
+- ``ring``: the 24-view loss and gradients with VGGT's ring over ``fsdp`` of
+  ``fsdp4·tp2`` (every rank with both rows), the trainer step on
+  ``fsdp2·tp4`` (a row on each fsdp rank) with ``ring_axis="fsdp"`` and
+  without, and the ``ring_axis`` error;
+- ``infer``: generation on ``dp2·fsdp2·tp2`` with parameters placed by
+  ``shard_params`` (``generate_text`` penalised, W8 with an int8 cache,
+  ``generate_speculative``, ``generate_early_exit``).
+
+It imports no JAX: the test holds the results to the JAX package in its own
+process.
+"""
+
+import copy
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from vggt_qwen3_tpu_torch.config import MeshConfig  # noqa: E402
+from vggt_qwen3_tpu_torch.inference import engine  # noqa: E402
+from vggt_qwen3_tpu_torch.inference.speculative import generate_speculative  # noqa: E402
+from vggt_qwen3_tpu_torch.models import qwen3, vlm  # noqa: E402
+from vggt_qwen3_tpu_torch.parallel.mesh import build_mesh  # noqa: E402
+from vggt_qwen3_tpu_torch.parallel.multihost import global_batch_from_local  # noqa: E402
+from vggt_qwen3_tpu_torch.parallel.pipeline import PipelinePlan, pipeline_decoder  # noqa: E402
+from vggt_qwen3_tpu_torch.parallel.sharding import full, shard_batch, shard_params  # noqa: E402
+from vggt_qwen3_tpu_torch.train import checkpoint as ckpt  # noqa: E402
+from vggt_qwen3_tpu_torch.train import trainer  # noqa: E402
+
+
+def whole(tree):
+    """Every leaf of a nested dict as its full tensor (a collective for DTensors)."""
+    if isinstance(tree, dict):
+        return {k: whole(v) for k, v in tree.items()}
+    return full(tree).detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def grads_of(tree):
+    return {n: (None if p.grad is None else full(p.grad).clone()) for n, p in trainer.named_leaves(tree)}
+
+
+def pipeline_checks(inp):
+    cfg, layers = inp["cfg"], inp["params"]["layers"]
+    h, cos, sin, mask = inp["h"], inp["cos"], inp["sin"], inp["mask"]
+    fn = lambda *a: qwen3.train_layer(cfg, *a)  # noqa: E731
+    res = {"fwd": {}}
+    meshes = {pp: build_mesh(MeshConfig(tp=8 // pp, pp=pp)) for pp in (2, 4)}
+    for pp, M in ((2, 2), (2, 4), (4, 4)):
+        with torch.no_grad():
+            res["fwd"][(pp, M)] = pipeline_decoder(layers, h, cos, sin, mask, plan=PipelinePlan(meshes[pp], M),
+                                                   layer_fn=fn)
+    plan = PipelinePlan(meshes[2], 4)
+    lg = {k: v.clone().requires_grad_(True) for k, v in layers.items()}
+    hg = h.clone().requires_grad_(True)
+    (pipeline_decoder(lg, hg, cos, sin, mask, plan=plan, layer_fn=fn) ** 2).mean().backward()
+    res["grads"] = {"layers": {k: v.grad for k, v in lg.items()}, "h": hg.grad}
+
+    staged = shard_params({"text": inp["params"]}, meshes[2])["text"]["layers"]
+    res["staged_placement"] = str(staged["wq"].placements)
+    res["staged_local_layers"] = staged["wq"].to_local().shape[0]
+    with torch.no_grad():
+        res["staged"] = pipeline_decoder(staged, h, cos, sin, mask, plan=PipelinePlan(meshes[2], 2), layer_fn=fn)
+        res["forward_hidden"] = qwen3.forward_hidden(inp["params"], cfg, h, attention_mask=inp["amask"],
+                                                     pipeline=PipelinePlan(meshes[2], 2))[0]
+    errors = []
+    for bad_layers, M in ((layers, 3), (inp["params3"]["layers"], 2)):
+        try:
+            pipeline_decoder(bad_layers, h, cos, sin, mask, plan=PipelinePlan(meshes[2], M), layer_fn=fn)
+        except ValueError as e:
+            errors.append(str(e))
+    res["errors"] = errors
+    return res
+
+
+def first_gradients(stage, params, inp):
+    """The first micro step's gradients, unsharded (where they are rounding
+    noise around an exact 0, Adam's steps are of either sign)."""
+    first = copy.deepcopy(params)
+    for _, p in trainer.named_leaves(first):
+        p.requires_grad_(True)
+    b = inp["batches"][0]
+    vlm.train_forward(first, stage.model, images=b["pixel_values"], geom_token=b["geom_token"],
+                      input_ids=b["input_ids"], attention_mask=b["attention_mask"], labels=b["labels"],
+                      image_token_id=inp["img_id"]).backward()
+    return {n: (torch.zeros_like(p) if p.grad is None else p.grad) for n, p in trainer.named_leaves(first)}
+
+
+def train_checks(inp, out_dir):
+    res = {}
+    mesh = build_mesh(MeshConfig(dp=2, tp=2, pp=2))
+    for lora in (False, True):
+        stage = inp["stages"][lora]
+        params = copy.deepcopy(inp["params"][lora])
+        grads = first_gradients(stage, params, inp) if dist.get_rank() == 0 else None
+        tx = trainer.make_tx(stage, params)
+        state = trainer.TrainState(params=params, opt_state=tx.init(params), step=0)
+        shardings = trainer.state_shardings(state, mesh)
+        step = trainer.make_train_step(stage, tx, inp["img_id"], has_geom=True, state_sharding=shardings)
+        metrics = []
+        for b in inp["batches"]:
+            state, m = step(state, shard_batch(b, mesh), None)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        rows = global_batch_from_local(shard_batch(b, mesh), mesh)  # this rank's rows as the global batch
+        res["global_batch"] = all(torch.equal(rows[k].full_tensor(), b[k]) for k in ("input_ids", "pixel_values"))
+        res[lora] = {"metrics": metrics, "params": whole(state.params), "grads": grads,
+                     "gradient_step": state.opt_state["gradient_step"],
+                     "placements": {n: str(p.placements) for n, p in trainer.named_leaves(state.params)}}
+    # the last state, saved and restored on another mesh shape, then one more micro step on each
+    path = out_dir / "ckpt" / "step_4"
+    saved = lambda st: flat(whole({"params": st.params, "mu": st.opt_state["mu"], "nu": st.opt_state["nu"],  # noqa: E731
+                                   "acc": st.opt_state["acc"]}))
+    before = saved(state)
+    ckpt.save(state, path)
+    other = build_mesh(MeshConfig(fsdp=4, tp=2))
+    restored = ckpt.restore(path, "cpu", mesh=other)
+    after = saved(restored)
+    res["restore_exact"] = before.keys() == after.keys() and all(torch.equal(before[n], after[n]) for n in before)
+    res["restored_placement"] = str(restored.params["text"]["layers"]["wq"].placements)
+    stage = inp["stages"][True]
+    b = inp["batches"][0]
+    _, m1 = step(state, shard_batch(b, mesh), None)
+    step2 = trainer.make_train_step(stage, trainer.make_tx(stage, restored.params), inp["img_id"], has_geom=True,
+                                    state_sharding=trainer.state_shardings(restored, other))
+    _, m2 = step2(restored, shard_batch(b, other), None)
+    res["next_loss"] = (m1["loss"].item(), m2["loss"].item())
+    return res
+
+
+def ring_checks(inp):
+    res = {}
+    mesh = build_mesh(MeshConfig(fsdp=4, tp=2))
+    cfg, params = inp["cfg"], copy.deepcopy(inp["params"])
+    for p in trainer.named_leaves(params):
+        p[1].requires_grad_(True)
+    loss = vlm.train_forward(params, cfg, images=inp["images"], geom_token=None, input_ids=inp["ids"],
+                             attention_mask=inp["mask"], labels=inp["labels"], image_token_id=500,
+                             ring_group=mesh.get_group("fsdp"))
+    loss.backward()
+    res["loss"] = loss.item()
+    res["grads"] = grads_of(params)
+
+    stage = inp["stage"]
+    mesh = build_mesh(MeshConfig(fsdp=2, tp=4))
+    batch = {"pixel_values": inp["images"], "input_ids": inp["ids"], "attention_mask": inp["mask"],
+             "labels": inp["labels"]}
+    losses = {}
+    for ring in (None, "fsdp"):
+        p = copy.deepcopy(inp["params"])
+        tx = trainer.make_tx(stage, p)
+        state = trainer.TrainState(params=p, opt_state=tx.init(p), step=0)
+        step = trainer.make_train_step(stage, tx, 500, has_geom=False,
+                                       state_sharding=trainer.state_shardings(state, mesh), ring_axis=ring)
+        _, m = step(state, shard_batch(batch, mesh), None)
+        losses[ring] = m["loss"].item()
+    res["step_losses"] = losses
+    try:
+        trainer.make_train_step(stage, tx, 500, has_geom=False, state_sharding=trainer.state_shardings(state, mesh),
+                                ring_axis="pp")
+    except ValueError as e:
+        res["extent_error"] = str(e)
+    return res
+
+
+def infer_checks(inp):
+    res = {}
+    mesh = build_mesh(MeshConfig(dp=2, fsdp=2, tp=2))
+    cfg = inp["cfg"]
+    with torch.no_grad():
+        c = inp["text"]
+        sharded = shard_params(c["params"], mesh)
+        res["wq_placement"] = str(sharded["layers"]["wq"].placements)
+        res["text"] = engine.generate_text(sharded, cfg, c["gen_cfg"], input_ids=c["ids"])
+        c = inp["w8"]
+        sharded = shard_params(qwen3.quantize_params(c["params"]), mesh)
+        res["w8_placement"] = str(sharded["layers"]["wq"]["w8"].placements)
+        res["w8"] = engine.generate_text(sharded, cfg, c["gen_cfg"], input_ids=c["ids"])
+        c = inp["spec"]
+        sharded = shard_params(c["params"], mesh)
+        mask = torch.ones(c["ids"].shape, dtype=torch.int32)
+        res["spec"] = generate_speculative(sharded, cfg, c["gen_cfg"], inputs_embeds=qwen3.embed_tokens(
+            sharded, c["ids"]), attention_mask=mask, prompt_ids=c["ids"], draft_k=4, ngram=3)[:2]
+        c = inp["early"]
+        sharded = shard_params(c["params"], mesh)
+        mask = torch.ones(c["ids"].shape, dtype=torch.int32)
+        res["early"] = engine.generate_early_exit(sharded, cfg, c["gen_cfg"], inputs_embeds=qwen3.embed_tokens(
+            sharded, c["ids"]), attention_mask=mask, budget=[6, 4])
+    return res
+
+
+def inputs(out_dir: Path, name: str):
+    """``DIR/inputs_<name>.pt``, waiting until the test has written it (it
+    builds each check's inputs while the ranks start and run the earlier ones)."""
+    path = out_dir / f"inputs_{name}.pt"
+    for _ in range(6000):
+        if path.exists():
+            return torch.load(path, weights_only=False)
+        time.sleep(0.1)
+    raise TimeoutError(f"no {path}")
+
+
+def main(rank: int, world: int, out_dir: Path) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(str(out_dir / "store"), world), rank=rank,
+                            world_size=world)
+    try:
+        res = {}
+        for name, fn in (("pipeline", pipeline_checks), ("infer", infer_checks), ("ring", ring_checks)):
+            res[name] = fn(inputs(out_dir, name))
+        res["train"] = train_checks(inputs(out_dir, "train"), out_dir)
+        assert not any(m.split(".")[0] in ("jax", "jaxlib", "vggt_qwen3_tpu") for m in sys.modules)
+        torch.save(res, out_dir / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]))

@@ -1,6 +1,12 @@
 """Helpers shared by the port's models: dtype names, seeded normal init,
 per-layer views of stacked weights, recompute for training, and the leaf
-conversion of the checkpoint converters."""
+conversion of the checkpoint converters.
+
+Parameters may be DTensors laid out by the sharding registry
+(``parallel/sharding.py``): :func:`layer_views` then yields per-layer shards,
+and each model function gathers what it reads on use (``full_tree``): a
+layer's weights inside that layer's (recomputed) function, every other leaf
+whole at the function's entry. Plain tensors pass through untouched."""
 
 from __future__ import annotations
 
@@ -9,6 +15,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.sharding import LayerShard, unstack
 
 Params = Dict[str, object]
 
@@ -26,13 +34,17 @@ def normal(gen: torch.Generator, shape, std: float, dt: torch.dtype) -> torch.Te
     return x.normal_(0.0, std, generator=gen).to(dt)
 
 
-def layer_views(lp: Params, L: int) -> List[Dict[str, object]]:
+def layer_views(lp: Params, L: int, stage=None) -> List[Dict[str, object]]:
     """The ``L`` per-layer views of stacked weights (W8 dicts and LoRA
     adapters leaf-wise), one ``unbind`` per leaf. Differentiated, each
     stacked leaf's gradient is then one stack of its layers' gradients;
     indexing ``w[li]`` layer by layer would instead add ``L`` full-size,
-    zero-padded copies (the same values, ``L`` times the memory traffic)."""
-    per_leaf = {k: (layer_views(w, L) if isinstance(w, dict) else w.unbind(0)) for k, w in lp.items()}
+    zero-padded copies (the same values, ``L`` times the memory traffic).
+    A DTensor leaf gives :class:`~..parallel.sharding.LayerShard` s, gathered
+    by the layer's function. ``stage`` (the pipeline's mesh): this pp rank's
+    ``L`` layers of its stage (``parallel.sharding.unstack``)."""
+    per_leaf = {k: (layer_views(w, L, stage) if isinstance(w, dict) else unstack(w, stage))
+                for k, w in lp.items()}
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(L)]
 
 
@@ -43,7 +55,7 @@ def remat(fn, *args):
     def needs(a):
         if isinstance(a, dict):
             return any(needs(t) for t in a.values())
-        return isinstance(a, torch.Tensor) and a.requires_grad
+        return isinstance(a, (torch.Tensor, LayerShard)) and a.requires_grad
 
     if torch.is_grad_enabled() and any(needs(a) for a in args):
         return checkpoint(fn, *args, use_reentrant=False)

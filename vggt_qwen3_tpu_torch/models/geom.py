@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..parallel.sharding import full_tree
 from .common import as_f32, leaf, normal, torch_dtype
 
 Params = Dict[str, torch.Tensor]
@@ -54,6 +55,7 @@ def apply(params: Params, geom: Optional[Mapping[str, torch.Tensor]], geom_token
     features with bf16 weights compute in f32)."""
     if geom is None or geom_tokens == 0:
         return None
+    params = full_tree(params)
     feats = pack_features(geom)
     dt = torch.promote_types(feats.dtype, params["w1"].dtype)
     pooled = feats.to(dt).mean(dim=1)

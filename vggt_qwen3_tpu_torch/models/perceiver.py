@@ -13,7 +13,11 @@ the attention output, the GELU output and the MLP output — draws its masks
 from an explicit ``torch.Generator``: ``generator=None`` is eval mode. The
 masks are other bits than JAX's ``jax.random`` draws from the same seed;
 their distribution is the same (keep with probability ``1 − rate``, kept
-values scaled by ``1/(1 − rate)``). The Perceiver is not recomputed under
+values scaled by ``1/(1 − rate)``). Under data parallelism each rank holds
+some rows of the batch: ``batch_rows`` makes it draw every mask at the
+global batch's shape and keep its own rows, so a run over several ranks
+draws the masks a run in one process draws (as JAX's sharding-invariant
+``jax.random`` does). The Perceiver is not recomputed under
 ``torch.utils.checkpoint`` (nor is it checkpointed in JAX): a recompute
 restores the global RNG, not an explicit generator, so it would draw other
 masks.
@@ -24,7 +28,7 @@ state dict into this layout, as the JAX module's converter does.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +37,7 @@ from .. import resolve_device
 from ..config import PerceiverConfig
 from ..ops.attention import mha
 from ..ops.norms import layer_norm
+from ..parallel.sharding import full_tree
 from .common import as_f32, layer_views, leaf, torch_dtype
 
 Params = Dict[str, object]
@@ -76,29 +81,41 @@ def init_params(
     }
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            batch_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout: each element kept with probability ``1 − rate`` and
     scaled by ``1/(1 − rate)``, the mask drawn from ``generator`` on its
-    device; ``x`` itself when ``generator`` is None or ``rate`` is 0."""
+    device; ``x`` itself when ``generator`` is None or ``rate`` is 0.
+    ``batch_rows = (first, total)``: ``x`` holds rows ``first …`` of a batch
+    of ``total``; the mask is drawn for all ``total`` and these rows kept."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    if batch_rows is None:
+        mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    else:
+        first, total = batch_rows
+        mask = torch.rand((total,) + x.shape[1:], generator=generator, device=generator.device) < keep
+        mask = mask[first:first + x.shape[0]]
     return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
 def apply(params: Params, cfg: PerceiverConfig, tokens: torch.Tensor, *,
-          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+          generator: Optional[torch.Generator] = None,
+          batch_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Resample ``tokens`` [B, T, in_dim] → [B, num_latents, out_dim].
 
     ``generator`` enables dropout (rate ``cfg.dropout``) for training; the
-    masks are drawn from it on its device, layer by layer, in site order."""
+    masks are drawn from it on its device, layer by layer, in site order
+    (at the global batch's shape with ``batch_rows``: :func:`dropout`).
+    Sharded parameters are gathered whole."""
+    params = full_tree(params)
     B = tokens.shape[0]
     D, H = cfg.latent_dim, cfg.num_heads
     hd = D // H
 
     def drop(x):
-        return dropout(x, cfg.dropout, generator)
+        return dropout(x, cfg.dropout, generator, batch_rows)
 
     context = tokens @ params["in_proj_w"] + params["in_proj_b"]
     lat = params["latents"][None].expand(B, -1, -1).to(context.dtype)

@@ -58,12 +58,19 @@ Training (the cache-free path with grad on): each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), as ``jax.checkpoint`` wraps the
 JAX module's layer scan; attention there is the plain masked ``mha``, as in
 JAX. :func:`lm_logits` differentiates through its f32-output head product.
+With ``pipeline`` (a ``parallel.pipeline.PipelinePlan`` whose mesh has
+``pp > 1``) that path runs the layers as a GPipe pipeline over ``pp``.
 
-Not ported: the pipeline.
+Sharded parameters (DTensors placed by ``parallel.sharding.shard_params``)
+are gathered on use: each layer's weights inside that layer's (recomputed)
+function, the embedding, head and final norm whole where they are read. A
+decode step's fused W8 kernels then read the gathered layer as a one-layer
+stack; no DTensor reaches a kernel.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -78,6 +85,8 @@ from ..ops.decode_matmul import fused_head_argmax, fused_linear_w8, fused_mlp_w8
 from ..ops.flash_attention import flash_attention
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..parallel.pipeline import pipeline_decoder
+from ..parallel.sharding import full, full_tree, is_sharded
 from .common import layer_views, normal, remat, torch_dtype
 
 Params = Dict[str, object]
@@ -148,7 +157,7 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-    emb = params["embed"]
+    emb = full_tree(params["embed"])
     ids = input_ids.long()
     if isinstance(emb, dict):  # W8: int8 rows × per-vocab scale, in the scale's dtype
         return emb["w8"][ids].to(emb["scale"].dtype) * emb["scale"][ids]
@@ -277,6 +286,14 @@ def _write_kv(buf: torch.Tensor, li: int, val: torch.Tensor, offset) -> None:
     layer[rows, :, slots] = torch.where(fresh, val[rows, src].to(buf.dtype), layer[rows, :, slots])
 
 
+def train_layer(cfg: Qwen3Config, h, lp, cos, sin, mask):
+    """One decoder layer of the cache-free path (plain masked ``mha``); a
+    sharded layer is gathered here, so again in its recompute."""
+    lp = full_tree(lp)
+    q, k, v = _layer_qkv(cfg, h, lp, cos, sin)
+    return _layer_post_attn(cfg, h, lp, mha(q, k, v, mask=mask))
+
+
 def forward_hidden(
     params: Params,
     cfg: Qwen3Config,
@@ -288,6 +305,7 @@ def forward_hidden(
     cache_offset=0,
     prefill_padding: Optional[str] = None,
     decode_frontier: bool = False,
+    pipeline=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Run the decoder stack.
 
@@ -309,6 +327,9 @@ def forward_hidden(
             [B, T] mask, the decode-attention kernel; with [B] offsets, S > 1
             and a [B, S, T] mask (query j's row = query 0's plus j slots),
             the block-verify kernel.
+        pipeline: a ``parallel.pipeline.PipelinePlan``; when its mesh has
+            ``pp > 1`` the cache-free (training) path runs the layers as a
+            GPipe pipeline over ``pp``. Ignored on cached calls.
     Returns:
         (hidden [B, S, H] after the final norm, the cache or None)
     """
@@ -328,6 +349,7 @@ def forward_hidden(
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
     layers = params["layers"]
+    final_norm = full(params["final_norm"])
     L = cfg.num_layers
     h = inputs_embeds
 
@@ -335,13 +357,13 @@ def forward_hidden(
         pad = attention_mask[:, None, None, :].bool() if attention_mask is not None else None
         mask = combine_masks(make_causal_mask(S, S, q_offset=cache_offset, device=dev)[None, None], pad)
 
-        def layer(h, lp):
-            q, k, v = _layer_qkv(cfg, h, lp, cos, sin)
-            return _layer_post_attn(cfg, h, lp, mha(q, k, v, mask=mask))
-
-        for lp in layer_views(layers, L):
-            h = remat(layer, h, lp)
-        return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), None
+        layer = functools.partial(train_layer, cfg)
+        if pipeline is not None and pipeline.pp > 1:
+            h = pipeline_decoder(layers, h, cos, sin, mask, plan=pipeline, layer_fn=layer)
+        else:
+            for lp in layer_views(layers, L):
+                h = remat(layer, h, lp, cos, sin, mask)
+        return rms_norm(h, final_norm, cfg.rms_norm_eps), None
 
     use_flash = prefill_padding is not None
     use_decode = decode_frontier and S == 1 and attention_mask is not None and attention_mask.ndim == 2
@@ -380,9 +402,14 @@ def forward_hidden(
     # multiplies)
     step = (S == 1 and not use_flash) or (per_row and S > 1)
     fused = _fused_groups(layers) if step else frozenset()
+    sharded = is_sharded(layers)
 
     for li, lp in enumerate(layer_views(layers, L)):
-        q, k, v = _layer_qkv(cfg, h, lp, cos, sin, layers, li, fused)
+        stacked, at = layers, li
+        if sharded:  # gathered per layer; the fused kernels read it as a one-layer stack
+            lp = full_tree(lp)
+            stacked, at = _one_layer_stack(lp, fused), 0
+        q, k, v = _layer_qkv(cfg, h, lp, cos, sin, stacked, at, fused)
         if quantized:
             k8, ks = _quantize_kv(k)
             v8, vs = _quantize_kv(v)
@@ -408,8 +435,14 @@ def forward_hidden(
                                     mask=mask, kv_heads_major=True)
         else:
             attn = mha(q, cache["k"][li], cache["v"][li], mask=mask, kv_heads_major=True)
-        h = _layer_post_attn(cfg, h, lp, attn, layers, li, fused)
-    return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
+        h = _layer_post_attn(cfg, h, lp, attn, stacked, at, fused)
+    return rms_norm(h, final_norm, cfg.rms_norm_eps), cache
+
+
+def _one_layer_stack(lp, fused) -> Params:
+    """The fused groups' weights of one gathered layer as ``[1, ...]`` stacks."""
+    keys = [k for g in fused for k in FUSED_GROUPS[g]]
+    return {k: {n: t[None] for n, t in lp[k].items()} for k in keys}
 
 
 QUANTIZED_LAYER_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
@@ -503,13 +536,13 @@ def lm_logits(params: Params, cfg: Qwen3Config, hidden: torch.Tensor) -> torch.T
     x = hidden.reshape(-1, hidden.shape[-1])
     head = _HeadDot.apply if torch.is_grad_enabled() else _head_dot
     if cfg.tie_word_embeddings:
-        w = params["embed"]
+        w = full_tree(params["embed"])
         if isinstance(w, dict):
             out = head(x, w["w8"].t()) * w["scale"][:, 0].float()
         else:
             out = head(x, w.t())
     else:
-        w = params["lm_head"]
+        w = full_tree(params["lm_head"])
         if isinstance(w, dict):
             out = head(x, w["w8"]) * w["scale"][0].float()
         else:
@@ -532,7 +565,7 @@ def greedy_tokens(params: Params, cfg: Qwen3Config, hidden: torch.Tensor) -> tor
     if hidden.ndim == 3:
         hidden = hidden[:, -1]
     if greedy_head_eligible(params, cfg):
-        tok, _ = fused_head_argmax(hidden.contiguous(), params["embed"])
+        tok, _ = fused_head_argmax(hidden.contiguous(), full_tree(params["embed"]))
         return tok
     return torch.argmax(lm_logits(params, cfg, hidden), -1).to(torch.int32)
 

@@ -17,7 +17,11 @@ The four block projections go through ``ops.quant.linear``: dense weights,
 or the W8 ``{"w8", "scale"}`` dicts of ``vlm.quantize_vision`` (dequantize,
 then one matmul — plain XLA in JAX). With ``ring_group`` the global blocks'
 attention is ring attention over that process group's ranks instead (the
-JAX module's ``ring_mesh``/``ring_axis``).
+JAX module's ``ring_mesh``/``ring_axis``), differentiable.
+
+Sharded parameters (DTensors of ``parallel.sharding.shard_params``) are
+gathered on use: each block's weights inside the block's (recomputed)
+function, the patch embedding, tokens and norms whole at entry.
 
 :func:`convert_torch_state_dict` maps a public VGGT checkpoint
 (``aggregator.*`` keys) into this layout, as the JAX module's converter does.
@@ -47,6 +51,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.norms import layer_norm
 from ..ops.ring_attention import ring_attention_sharded
 from ..ops.rope2d import apply_rope2d, rope2d_cos_sin
+from ..parallel.sharding import full_tree
 from .common import as_f32, layer_views, leaf, normal, remat, torch_dtype
 
 Params = Dict[str, object]
@@ -110,6 +115,7 @@ def _vit_block(x, bp, num_heads, eps, *, cos=None, sin=None, rot_mask=None, atte
     ring-attention hook of sequence-sharded global attention."""
     B, T, E = x.shape
     hd = E // num_heads
+    bp = full_tree(bp)  # a sharded block is gathered here, again in the recompute
     h = layer_norm(x, bp["ln1_w"], bp["ln1_b"], eps)
     qkv = quant.linear(h, bp["qkv_w"]) + bp["qkv_b"]
     q, k, v = (t.reshape(B, T, num_heads, hd) for t in qkv.chunk(3, dim=-1))
@@ -174,7 +180,7 @@ def _torch_bicubic_resize(grid: torch.Tensor, hw: Tuple[int, int], offset: float
 
 def _patch_backbone(params: Params, cfg: VGGTConfig, frames: torch.Tensor) -> torch.Tensor:
     """DINOv2-style backbone: frames [N, 3, H, W] → patch tokens [N, P², E]."""
-    pp = params["patch"]
+    pp = full_tree(params["patch"], skip=("blocks",))
     N, _, H, W = frames.shape
     P = cfg.patch_size
     hp, wp = H // P, W // P
@@ -201,7 +207,7 @@ def _patch_backbone(params: Params, cfg: VGGTConfig, frames: torch.Tensor) -> to
 
 
 def aggregator(params: Params, cfg: VGGTConfig, images: torch.Tensor, *, return_all_layers: bool = False,
-               ring_group=None) -> Tuple[List[torch.Tensor], int]:
+               ring_group=None, ring_rows_sharded: bool = False) -> Tuple[List[torch.Tensor], int]:
     """VGGT aggregator forward.
 
     Args:
@@ -212,13 +218,17 @@ def aggregator(params: Params, cfg: VGGTConfig, images: torch.Tensor, *, return_
         ring_group: a ``torch.distributed`` process group: global attention
             then runs as ring attention with the S·T sequence sharded over
             its ranks (``ops/ring_attention.ring_attention_sharded``; S·T
-            must divide by the group's size). Forward only.
+            must divide by the group's size).
+        ring_rows_sharded: the ranks of ``ring_group`` hold different rows
+            of the batch (a ring over a data axis): each global attention
+            gathers them first and keeps this rank's after.
     Returns:
         ([concat output [B, S, T, 2E] of the last pair, or of every pair],
         patch_start_idx)
     """
     B, S, C, H, W = images.shape
     dev = images.device
+    params = full_tree(params, skip=("patch", "frame_blocks", "global_blocks"))
     dt = params["camera_token"].dtype
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=dev).reshape(1, 1, 3, 1, 1)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=dev).reshape(1, 1, 3, 1, 1)
@@ -245,7 +255,8 @@ def aggregator(params: Params, cfg: VGGTConfig, images: torch.Tensor, *, return_
     sin_global = sin_f.repeat(1, S, 1).expand(B, -1, -1)
 
     eps = cfg.layer_norm_eps
-    global_attend = None if ring_group is None else functools.partial(ring_attention_sharded, group=ring_group)
+    global_attend = None if ring_group is None else functools.partial(
+        ring_attention_sharded, group=ring_group, rows_sharded=ring_rows_sharded)
     fb = layer_views(params["frame_blocks"], cfg.num_layers)
     gb = layer_views(params["global_blocks"], cfg.num_layers)
     outs = []

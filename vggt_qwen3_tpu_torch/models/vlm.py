@@ -17,8 +17,11 @@ training splice that overwrites embeddings in place, and the training loss.
   [B, T, V] f32 logits (128 positions a chunk, each recomputed in the
   backward).
 - :func:`train_forward` — geom tokens (when given) before the visual tokens,
-  spliced over the first ``<image>``, the cache-free Qwen3 forward, the
-  chunked loss.
+  spliced over the first ``<image>``, the cache-free Qwen3 forward (a GPipe
+  pipeline with ``pipeline``), the chunked loss. Under data parallelism
+  (``data_group``: the ranks over ``dp × fsdp``, each with its own rows) the
+  loss divides by the global count of valid tokens and dropout draws the
+  global batch's masks, so n ranks compute what one process computes.
 - :func:`quantize_vision` — W8 or W8A8 serving weights for the frozen
   tower's block projections.
 """
@@ -28,6 +31,7 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import VLMConfig
 from ..ops import quant
@@ -98,26 +102,30 @@ def mock_aggregator(cfg: VLMConfig, images: torch.Tensor) -> Tuple[list, int]:
 
 
 def encode_images(params: Params, cfg: VLMConfig, images: torch.Tensor, *,
-                  generator: Optional[torch.Generator] = None, ring_group=None) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None, ring_group=None, ring_rows_sharded: bool = False,
+                  batch_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """[B, V, 3, H, W] in [0, 1] → [B, num_vis_tokens, text_hidden].
 
     Under ``cfg.freeze_vision`` no gradient enters the tower: it runs under
-    ``torch.no_grad()``. ``generator`` enables the Perceiver's dropout.
+    ``torch.no_grad()``. ``generator`` enables the Perceiver's dropout
+    (``batch_rows``: these rows' place in the global batch, ``perceiver.dropout``).
     ``ring_group``: VGGT's global attention as ring attention over that
-    process group (``vggt.aggregator``; the >16-view scale-out)."""
+    process group (``vggt.aggregator``; the >16-view scale-out), whose ranks
+    hold different rows with ``ring_rows_sharded``."""
     B = images.shape[0]
+    ring = dict(ring_group=ring_group, ring_rows_sharded=ring_rows_sharded)
     if cfg.vision_backbone == "mock":
         tokens_list, _ = mock_aggregator(cfg, images)
     elif cfg.freeze_vision:
         with torch.no_grad():
-            tokens_list, _ = vggt.aggregator(params["vision"], cfg.vision, images, ring_group=ring_group)
+            tokens_list, _ = vggt.aggregator(params["vision"], cfg.vision, images, **ring)
     else:
-        tokens_list, _ = vggt.aggregator(params["vision"], cfg.vision, images, ring_group=ring_group)
+        tokens_list, _ = vggt.aggregator(params["vision"], cfg.vision, images, **ring)
     agg = tokens_list[-1]
     agg = agg.reshape(B, -1, agg.shape[-1])[:, : cfg.num_vis_tokens, :]
     if cfg.freeze_vision:
         agg = agg.detach()
-    return perceiver.apply(params["projector"], cfg.projector, agg, generator=generator)
+    return perceiver.apply(params["projector"], cfg.projector, agg, generator=generator, batch_rows=batch_rows)
 
 
 def encode_geom(params: Params, cfg: VLMConfig, geom: Optional[Mapping[str, torch.Tensor]]):
@@ -188,12 +196,18 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def causal_lm_loss_chunked(text_params, text_cfg, hidden: torch.Tensor, labels: torch.Tensor, *,
-                           chunk: int = 128) -> torch.Tensor:
+                           chunk: int = 128, data_group=None) -> torch.Tensor:
     """:func:`causal_lm_loss` over the LM head evaluated ``chunk`` positions
     at a time, each chunk recomputed in the backward: the peak holds one
     [B, chunk, V] f32 chunk. ``hidden`` is the post-final-norm state
     [B, T, H]; the shift happens here. The chunk sums are added in order in
-    f32, as JAX's scan adds them."""
+    f32, as JAX's scan adds them.
+
+    ``data_group`` (each rank with its own rows): the sum and the count of
+    valid tokens are all-reduced over it and the value returned is the
+    global batch's mean, while the gradient is this rank's share of it (its
+    rows' sum over the global count), so the ranks' gradients add up to the
+    global one."""
     B, T, H = hidden.shape
     hs, targets = hidden[:, :-1], labels[:, 1:]
     n = T - 1
@@ -211,7 +225,14 @@ def causal_lm_loss_chunked(text_params, text_cfg, hidden: torch.Tensor, labels: 
         s, c = remat(body, hs[:, c0:c0 + chunk], targets[:, c0:c0 + chunk])
         total = total + s
         count = count + c
-    return total / count.clamp_min(1)
+    if data_group is None or dist.get_world_size(data_group) == 1:
+        return total / count.clamp_min(1)
+    count = count.clone()
+    dist.all_reduce(count, group=data_group)
+    share = total / count.clamp_min(1)
+    whole = share.detach().clone()
+    dist.all_reduce(whole, group=data_group)
+    return (share - share.detach()) + whole  # the value of ``whole``, the gradient of ``share``
 
 
 def train_forward(
@@ -225,11 +246,27 @@ def train_forward(
     labels: torch.Tensor,
     image_token_id: int,
     generator: Optional[torch.Generator] = None,
+    pipeline=None,
+    ring_group=None,
+    ring_rows_sharded: bool = False,
+    data_group=None,
 ) -> torch.Tensor:
     """Training loss: geom tokens (when present) concatenated **before** the
     visual tokens, the combined span overwriting embeddings at the first
-    ``<image>``, then the chunked causal-LM loss."""
-    vis = encode_images(params, cfg, images, generator=generator)
+    ``<image>``, then the chunked causal-LM loss.
+
+    ``pipeline``: the text stack as a GPipe pipeline (``qwen3.forward_hidden``).
+    ``ring_group``/``ring_rows_sharded``: VGGT's global attention as ring
+    attention (``encode_images``). ``data_group``: the group of ranks that
+    hold the other rows of the batch (dp × fsdp), each with the same number
+    of rows; the loss and the dropout masks are then the global batch's
+    (module note)."""
+    batch_rows = None
+    if data_group is not None and dist.get_world_size(data_group) > 1:
+        b = input_ids.shape[0]
+        batch_rows = (dist.get_rank(data_group) * b, dist.get_world_size(data_group) * b)
+    vis = encode_images(params, cfg, images, generator=generator, ring_group=ring_group,
+                        ring_rows_sharded=ring_rows_sharded, batch_rows=batch_rows)
     geom_feats = encode_geom(params, cfg, geom_token)
     if geom_feats is None:
         features = vis
@@ -238,5 +275,6 @@ def train_forward(
         features = torch.cat([geom_feats.to(dt), vis.to(dt)], dim=1)
     embeds = qwen3.embed_tokens(params["text"], input_ids)
     embeds = splice_overwrite(embeds, input_ids, features, image_token_id)
-    hidden, _ = qwen3.forward_hidden(params["text"], cfg.text, embeds, attention_mask=attention_mask)
-    return causal_lm_loss_chunked(params["text"], cfg.text, hidden, labels)
+    hidden, _ = qwen3.forward_hidden(params["text"], cfg.text, embeds, attention_mask=attention_mask,
+                                     pipeline=pipeline)
+    return causal_lm_loss_chunked(params["text"], cfg.text, hidden, labels, data_group=data_group)

@@ -21,6 +21,14 @@ weight 0, the sum cast to ``q.dtype``.
 − 1), so gradients reach q through each chunk's flash backward (which takes
 the lse cotangent) and k/v through the rotations.
 
+:func:`ring_attention_sharded` takes full tensors that every rank of the
+group holds (or, with ``rows_sharded``, each rank its own batch rows, which
+it gathers first and keeps again after). Its gradients follow JAX's
+``shard_map`` transposes: the output all-gather's backward keeps this rank's
+slice of the cotangent (every rank's is the same), and the slicing of the
+replicated inputs becomes, in the backward, the all-gather of the slices'
+cotangents.
+
 A group of one rank runs one step and communicates nothing; then
 :func:`ring_attention` equals the direct flash forward bit for bit. The
 card runs the ring with one rank (NCCL cannot put two ranks on one card);
@@ -35,6 +43,8 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from ..parallel.mesh import init_world_of_one
+from ..parallel.sharding import gather, scatter
 from .flash_attention import NEG_INF, flash_attention_with_lse
 
 
@@ -109,34 +119,27 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, group=N
 
 
 def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, group=None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None, rows_sharded: bool = False) -> torch.Tensor:
     """Ring attention over full (replicated) tensors, as the JAX module's
     ``shard_map`` wrapper: this rank takes its chunk of the sequence
     (``S`` and ``T`` must divide by the group's size), runs
     :func:`ring_attention` and all-gathers the output shards → ``[B, S, NH,
-    D]`` on every rank.
+    D]`` on every rank. Differentiable (module note).
 
-    Forward only: gradients through the all-gather over replicated inputs
-    (JAX sums the shards' cotangents) come with the mesh (ROADMAP item 6);
-    with an input that requires grad this raises. Differentiate
-    :func:`ring_attention` over local shards instead."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("ring_attention_sharded is forward-only; gradients through it over replicated "
-                                  "inputs come with the mesh (ROADMAP item 6): differentiate ring_attention")
+    ``rows_sharded``: each rank of ``group`` holds its own rows of the batch
+    (a ring over a data axis of the mesh); the rows are all-gathered over the
+    group before the ring and this rank's rows kept after, as XLA reshards
+    around JAX's ``shard_map``."""
     group = dist.group.WORLD if group is None else group
     n = dist.get_world_size(group)
-    r = dist.get_rank(group)
     S, T = q.shape[1], k.shape[1]
     if S % n or T % n:
         raise ValueError(f"ring_attention_sharded: sequence lengths {S} and {T} must divide by the group's {n} ranks")
-    s, t = S // n, T // n
-    out = ring_attention(q[:, r * s:(r + 1) * s], k[:, r * t:(r + 1) * t], v[:, r * t:(r + 1) * t],
-                         group=group, scale=scale)
-    if n == 1:
-        return out
-    shards = [torch.empty_like(out) for _ in range(n)]
-    dist.all_gather(shards, out.contiguous(), group=group)
-    return torch.cat(shards, dim=1)
+    if rows_sharded:
+        q, k, v = (gather(t, 0, group) for t in (q, k, v))
+    out = ring_attention(scatter(q, 1, group), scatter(k, 1, group), scatter(v, 1, group), group=group, scale=scale)
+    out = gather(out, 1, group)
+    return scatter(out, 0, group) if rows_sharded else out
 
 
 @contextlib.contextmanager
@@ -144,8 +147,7 @@ def single_rank_group(device):
     """The default process group as this process alone, made on an
     in-process store (no address): NCCL for a CUDA device, gloo for the CPU;
     destroyed on exit."""
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
-    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    init_world_of_one(torch.device(device).type)
     try:
         yield dist.group.WORLD
     finally:

@@ -32,6 +32,18 @@ JAX trainer's (``trainer.py:113-159``):
 Python scalars enter the arithmetic as JAX's weakly typed scalars do: cast
 to the leaf's dtype first. The step updates the state **in place** (the JAX
 step donates and returns it).
+
+Sharded state (``state_shardings`` on a mesh of ``parallel/mesh.py``, passed
+to :func:`make_train_step`): the params and every optimizer leaf that
+mirrors a parameter are DTensors laid out by the registry, the text layers
+stage-sharded over ``pp``; the 8-bit moments and the counters replicate, as
+in JAX. The step runs on this rank's rows with the weights gathered on use;
+the gradients come back to each leaf's layout (reduce-scattered or
+all-reduced over the data axes), and clip, the global norm (over the full
+gradients) and AdamW / 8-bit AdamW run on each rank's shards — the 8-bit
+update on the whole leaf, whose replicated moments it reads, of which each
+rank keeps its part. On a mesh of one rank every collective is skipped and
+the step is the unmeshed step's arithmetic, bit for bit.
 """
 
 from __future__ import annotations
@@ -42,9 +54,14 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..config import StageConfig, TrainConfig
 from ..models import qwen3, vlm
+from ..parallel.mesh import DATA_AXES, axis_group, mesh_shape
+from ..parallel.sharding import (NamedSharding, gather_local, local, local_part, param_specs, path_keys, place,
+                                 sharded_dims, spec_with_pp)
 from . import adam8bit
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -125,11 +142,25 @@ def _scalar(x, like: torch.Tensor) -> torch.Tensor:
 def global_norm(grads) -> torch.Tensor:
     """``optax.global_norm``: √(Σ over leaves of Σ x·x), each leaf's squares
     in its dtype and its sum returned in its dtype (summed in f32), the leaf
-    sums added in order; leaves without a gradient (None) count 0."""
+    sums added in order; leaves without a gradient (None) count 0. A
+    DTensor leaf's f32 sum is its shards' sums all-reduced over the mesh
+    dims it is sharded on (one all-reduce for the leaves of each layout)."""
+    leaves = [g for g in grads if g is not None]
+    sums = [(local(g) * local(g)).sum(dtype=torch.float32) for g in leaves]
+    by_layout = {}
+    for i, g in enumerate(leaves):
+        dims = sharded_dims(g)
+        if dims:
+            by_layout.setdefault((g.device_mesh, dims), []).append(i)
+    for (mesh, dims), idx in by_layout.items():
+        both = torch.stack([sums[i] for i in idx])
+        for d in dims:
+            dist.all_reduce(both, group=mesh.get_group(d))
+        for j, i in enumerate(idx):
+            sums[i] = both[j]
     total = 0
-    for g in grads:
-        if g is not None:
-            total = total + (g * g).sum(dtype=torch.float32).to(g.dtype)
+    for g, s in zip(leaves, sums):
+        total = total + s.to(g.dtype)
     if isinstance(total, int):
         return torch.zeros(())
     return torch.sqrt(total)
@@ -184,8 +215,8 @@ class Optimizer:
                 continue
             if a is None:
                 a = acc[name] = torch.zeros_like(p)
-            if g is None:
-                g = torch.zeros_like(a)
+            a = local(a)
+            g = torch.zeros_like(a) if g is None else local(g)
             d = g - a
             d.div_(n + 1)
             a.add_(d)
@@ -212,28 +243,43 @@ class Optimizer:
             if group == "frozen":
                 continue
             g = grads.get(name)
-            g = torch.zeros_like(p) if g is None else g
+            g = torch.zeros_like(local(p)) if g is None else local(g)
             if clip:
                 g = (g / g_norm.to(device=g.device, dtype=g.dtype)) * _scalar(cfg.gradient_clip, g)
             mu, nu = state["mu"][name], state["nu"][name]
             if cfg.optimizer == "adamw8bit":  # JAX: scale_by_adam8bit, add_decayed_weights, scale_by_learning_rate
                 if bc8 is None:
                     bc8 = adam8bit.bias_corrections(count + 1, B1, B2, p.device)
-                u = adam8bit.leaf_update(g, mu, nu, *bc8, b1=B1, b2=B2, eps=EPS)
-                u = adam8bit.fma(p, _scalar(cfg.weight_decay, p), u)
+                # the replicated block moments cover the whole leaf: update it whole, keep this rank's part
+                whole = _gathered(p)
+                u = adam8bit.leaf_update(_gathered(p, g), mu, nu, *bc8, b1=B1, b2=B2, eps=EPS)
+                u = adam8bit.fma(whole, _scalar(cfg.weight_decay, whole), u)
             else:
+                mu, nu, pl = local(mu), local(nu), local(p)
                 mu.mul_(_scalar(B1, mu)).add_(_scalar(1 - B1, g) * g)
                 nu.mul_(_scalar(B2, nu)).add_(_scalar(1 - B2, g) * (g * g))
                 mu_hat = mu / bc1.to(device=mu.device, dtype=mu.dtype)
                 nu_hat = nu / bc2.to(device=nu.device, dtype=nu.dtype)
                 u = mu_hat / (torch.sqrt(nu_hat) + _scalar(EPS, nu_hat))
-                u = u + _scalar(cfg.weight_decay, p) * p
+                u = u + _scalar(cfg.weight_decay, pl) * pl
             u = lr[group].to(device=u.device, dtype=u.dtype) * u
             if self.keep is not None and name.startswith("text/layers/") and u.ndim >= 1 \
-                    and u.shape[0] == self.num_text_layers:
-                u = u * torch.from_numpy(self.keep).to(device=u.device, dtype=u.dtype).reshape(
+                    and p.shape[0] == self.num_text_layers:
+                keep = torch.from_numpy(self.keep).to(device=u.device, dtype=u.dtype).reshape(
                     (-1,) + (1,) * (u.ndim - 1))
-            p.add_(u)
+                u = u * (keep if u.shape[0] == self.num_text_layers else local_part(keep, p, dims=(0,)))
+            if cfg.optimizer == "adamw8bit":
+                u = local_part(u, p)
+            local(p).add_(u)
+
+
+def _gathered(p, value=None) -> torch.Tensor:
+    """The whole of a leaf laid out as the DTensor ``p`` (``value``: a
+    tensor with ``p``'s layout, else ``p`` itself); a plain tensor as it is."""
+    value = p if value is None else value
+    if not isinstance(p, DTensor):
+        return value
+    return gather_local(local(value), p.device_mesh, p.placements)
 
 
 def make_tx(stage: StageConfig, params) -> Optimizer:
@@ -262,16 +308,95 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(state)
 
 
-def make_train_step(stage: StageConfig, tx: Optimizer, image_token_id: int, *, has_geom: bool):
+def state_specs(state: TrainState, pp: int = 1) -> TrainState:
+    """The registry's spec of every leaf of a train state (JAX's
+    ``state_shardings`` rules): the params by their paths; each optimizer
+    leaf that mirrors a parameter (``mu``, ``nu``, the accumulators ``acc``,
+    given for every parameter since they appear with its first gradient)
+    by its parameter's path, the text layers stage-sharded over ``pp``; the
+    8-bit block moments and the counters replicate."""
+    params = param_specs(state.params, pp)
+    mirror = {n: spec_with_pp(path_keys(n), p.ndim, pp) for n, p in named_leaves(state.params)}
+
+    def moments(tree):
+        return {n: ({k: () for k in m} if isinstance(m, dict) else mirror[n]) for n, m in tree.items()}
+
+    opt = {k: (moments(v) if k in ("mu", "nu") else dict(mirror) if k == "acc" else ())
+           for k, v in state.opt_state.items()}
+    return TrainState(params=params, opt_state=opt, step=())
+
+
+def state_shardings(state: TrainState, mesh) -> TrainState:
+    """:func:`state_specs` as :class:`~..parallel.sharding.NamedSharding` s on ``mesh``."""
+    pp = mesh_shape(mesh).get("pp", 1)
+    specs = state_specs(state, pp)
+
+    def on_mesh(tree):
+        if isinstance(tree, dict):
+            return {k: on_mesh(v) for k, v in tree.items()}
+        return NamedSharding(mesh, tree)
+
+    return TrainState(params=on_mesh(specs.params), opt_state=on_mesh(specs.opt_state), step=on_mesh(specs.step))
+
+
+def shard_state(state: TrainState, shardings: TrainState) -> TrainState:
+    """Lay the state's tensors out by ``shardings`` in place (plain tensors
+    become DTensors; leaves already so laid out stay as they are). Every
+    rank holds the same full state before; rank 0's is distributed."""
+
+    def put(tree, sh, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                put(v, sh[k], f"{prefix}{k}/")
+            elif isinstance(v, torch.Tensor):
+                tree[k] = place(v, sh[k], prefix + k)
+
+    put(state.params, shardings.params)
+    opt = state.opt_state
+    for key in ("mu", "nu", "acc"):
+        for name, v in opt[key].items():
+            if isinstance(v, torch.Tensor):  # the 8-bit moments' dicts replicate: plain tensors on every rank
+                opt[key][name] = place(v, shardings.opt_state[key][name], f"{key}/{name}")
+    return state
+
+
+def make_train_step(stage: StageConfig, tx: Optimizer, image_token_id: int, *, has_geom: bool,
+                    state_sharding: Optional[TrainState] = None, ring_axis: Optional[str] = None):
     """(state, batch, generator) → (state, metrics). The batch holds tensors
     on the params' device (``pixel_values``, ``input_ids``,
     ``attention_mask``, ``labels`` and, with ``has_geom``, the ``geom_token``
     dict); ``generator`` drives the Perceiver's dropout (None: eval mode).
     Every leaf is differentiated, as in JAX; the metrics are the loss and the
-    global norm of this micro step's gradients."""
+    global norm of this micro step's gradients.
+
+    ``state_sharding`` (:func:`state_shardings`): the state is laid out by it
+    (at the first call, where it is not yet) and the batch is this rank's
+    rows of the global batch (``parallel.sharding.shard_batch``: every rank
+    of a ``dp × fsdp`` block holds the same rows); the loss and metrics are
+    the global batch's. With ``pp > 1`` the text stack runs as a GPipe
+    pipeline of ``pp_microbatches`` (default ``2·pp``) microbatches.
+    ``ring_axis`` (needs ``state_sharding``): VGGT's global attention as ring
+    attention over that mesh axis (``--ring`` in the sft CLI)."""
     mcfg = stage.model
+    if ring_axis is not None and state_sharding is None:
+        raise ValueError("ring_axis requires state_sharding (a mesh to ring over)")
+    parallel = {}
+    if state_sharding is not None:
+        mesh = next(named_leaves(state_sharding.params))[1].mesh
+        shape = mesh_shape(mesh)
+        if ring_axis is not None:
+            if shape.get(ring_axis, 1) < 2:
+                raise ValueError(f"ring axis {ring_axis!r} has extent < 2 on mesh {shape}")
+            parallel.update(ring_group=mesh.get_group(ring_axis), ring_rows_sharded=ring_axis in DATA_AXES)
+        if shape.get("pp", 1) > 1:
+            from ..parallel.pipeline import PipelinePlan
+
+            parallel["pipeline"] = PipelinePlan(mesh, stage.train.pp_microbatches or 2 * shape["pp"])
+        parallel["data_group"] = axis_group(mesh, DATA_AXES)
 
     def step_fn(state: TrainState, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
+        if state_sharding is not None:
+            shard_state(state, state_sharding)
         leaves = dict(named_leaves(state.params))
         for p in leaves.values():
             p.requires_grad_(True)
@@ -286,6 +411,7 @@ def make_train_step(stage: StageConfig, tx: Optimizer, image_token_id: int, *, h
                 labels=batch["labels"],
                 image_token_id=image_token_id,
                 generator=generator,
+                **parallel,
             )
             loss.backward()
             grads = {name: p.grad for name, p in leaves.items()}
