@@ -76,7 +76,9 @@ Run from the root of a checkout. It:
    updates), the same 4 micro steps on the card through the meshed step of
    a 1-rank NCCL world (``state_shardings`` on ``build_mesh(None)``: bit for
    bit the unmeshed card run's losses, grad norms and parameters), then
-   saves and restores that train state and checks the next steps; and the W8A8 and W4 modes (``reference_check_quant``: the W8A8
+   saves that meshed train state (``checkpoint.save``: each rank's shards,
+   here the one's) and restores it onto the mesh (every leaf bit for bit)
+   and checks the next steps; and the W8A8 and W4 modes (``reference_check_quant``: the W8A8
    int32 product and output bit for bit at 1, 8, 17 and 368 rows, W4
    ``linear`` by ``utils.agreement``, penalised ``generate_text`` tokens);
 5. drives the QA path at full width — Qwen3-4B, VGGT-1B, the perceiver_small
@@ -87,17 +89,19 @@ Run from the root of a checkout. It:
    each run to check the tokens are identical; then once with W8 weights
    (``quantize=True``), and once more with qkvo LoRA adapters on the W8
    weights (the fused MLP still runs; QKV and WO take the plain product);
+   and a device-only profile of one QA batch;
 6. drives the W8 decode path at full width through
    ``vggt_qwen3_tpu_torch.bench`` (Qwen3-4B, W8 weights, int8 cache,
    B=368, prompt 32, 128 greedy steps): tokens/s, the decode step, peak
    memory, the launch counts of one timed ``generate`` (counters set to 0
-   just before it), tokens identical on the repeat, and a profile by kernel
-   family;
+   just before it), tokens identical on the repeat, and a device-only
+   profile by kernel family of a ``W8_PROFILE_STEPS``-step generate;
 6b. drives the W8A8 and W4 modes and text generation at full width
    (``quant_path``): the bench with ``--quant w8a8`` (B=368, 128 steps, int8
-   cache; tok/s and the decode step beside the W8 bench's, launches of
-   kernels 1, 2 and 7 as the shapes give them and none of kernels 4–6,
-   tokens identical on the repeat, a 2-step profile); the quality gate
+   cache; after a 2-step warm-up, tok/s of one timed generate and the
+   decode step beside the W8 bench's, launches of kernels 1, 2 and 7 as the
+   shapes give them and none of kernels 4–6, tokens identical on one repeat,
+   a device-only 2-step profile); the quality gate
    ``evals.baseline.evaluate`` on the placeholder test splits (one bf16 pass
    against W8A8 and against W4 with an int8 cache, 32 new tokens, kernels
    4–6 never launched in a quantized run); one QA batch with
@@ -120,8 +124,9 @@ Run from the root of a checkout. It:
    the path in them (six one-token steps against one 7-token verify block,
    bf16 GEMMs at 4 rows against 28, both with the plain attention versions
    on the card); the same verify block with the kernel holds each layer's
-   kernel call to the plain version on its inputs; then a profile of one
-   speculative run cut at 128 new tokens;
+   kernel call to the plain version on its inputs (the plain run records
+   its top-2 gaps as it runs); then a profile of one speculative run cut at
+   ``ARKIT_PROFILE_TOKENS`` new tokens;
 8. drives the serving path at full width through the port's HTTP server
    (``inference.server``, ``ThreadingHTTPServer`` on a free localhost port)
    on the stage of ``configs/stage1_3d.yaml`` with the server's defaults
@@ -132,7 +137,7 @@ Run from the root of a checkout. It:
    once the first chunk ran (two with budgets 8 and 16), asserting 200s,
    ``/healthz``, a mid-decode admission and every launch count;
    requests/s and p50/p95 latency (HTTP, and the engine's
-   ``track_metrics``); a window of 4 requests to the slots service and 1 to
+   ``track_metrics``); a window of 2 requests to the slots service and 1 to
    the speculative one, 8 new tokens each, under the profiler (device busy
    and idle share, device-only tracing; each of our families' launches must
    all be seen); each request's tokens held to ``engine.generate`` of its
@@ -158,8 +163,10 @@ Run from the root of a checkout. It:
    forwards frozen; 144 forwards, 72 dq and 72 dk/dv unfrozen — the forward
    and its recompute), finite losses, frozen leaves bit-identical, and every
    trainable leaf changed unless its update is under half a bf16 ulp
-   everywhere; micro-step wall time, tokens/s, peak memory and a profile of
-   one micro step with its update. Every step runs through the meshed step
+   everywhere; micro-step wall time, tokens/s, peak memory and a device-only
+   profile of one micro step with its update (between two marker kernels),
+   one session. The state is made straight into its shards
+   (``init_train_state(mesh=...)``) and every step runs through the meshed step
    (``make_train_step(state_sharding=state_shardings(state,
    build_mesh(None)))``) on a 1-rank NCCL world; then one call of the sft
    CLI (``train.sft.main(... --fsdp 1 --tiny --mock_vision --max_steps 2
@@ -170,9 +177,10 @@ Run from the root of a checkout. It:
    512, LoRA r16 on qkvo, the tower W8A8 and the Qwen3 base W8 frozen,
    8-bit AdamW, full width and depth; a cycle of 2 micro steps and the
    update; the schedule's horizon cut to 4 updates so that the second runs
-   at the peak learning rate): micro-step and cycle times, the update
-   residual, the recipe step (32 micro steps and the residual), text
-   tokens/s, MFU against 989 TFLOP/s, peak memory, 72 flash forwards a micro
+   at the peak learning rate): micro-step and cycle times (the least of
+   ``RECIPE_MICRO_REPS`` micro steps and ``RECIPE_CYCLE_REPS`` cycle after
+   their warm-ups), the update residual, the recipe step (32 micro steps
+   and the residual), text tokens/s, MFU against 989 TFLOP/s, peak memory, 72 flash forwards a micro
    step and no other launch, frozen leaves unmoved and trainable ones moved,
    and a device-only profile of one cycle (the optimizer's kernels between
    marker kernels); (b) ``configs/stage2_arkit.yaml`` (``stage2_train_stage``:
@@ -191,7 +199,7 @@ Run from the root of a checkout. It:
    functions at full width with the root bench's shapes and defaults (W8
    text, int8 KV where the root has it), on one seeded W8 VLM tree (serve and
    serve_sla take its text), a warm-up and 1 timed repetition instead of the
-   root's warm-up and 3–5;
+   root's warm-up and 3–5, and serve_sla's loads of 32 requests instead of 96;
    each mode's figures on a line, its launches (counters set to 0 just
    before and read just after) held to ``bench_mode_launches_ok`` (kernel
    1's count exact, from the shapes, repetitions and admissions), the first
@@ -256,7 +264,8 @@ ARKIT_SCENES = "data/processed/arkit_synth/test.json"
 SCHEMA_KEYS = ["action", "scene", "center", "normal", "extent"]
 DRAFT_K = 6  # generate_batch's default verify block: k + 1 = 7 queries
 ARKIT_NEW_TOKENS = 340  # every constrained object closes within 340 byte tokens
-ARKIT_PROFILE_TOKENS = 128
+ARKIT_PROFILE_TOKENS = 64  # the profiled speculative ARKit run, cut short: its verify iterations repeat one another
+W8_PROFILE_STEPS = 32  # the W8 bench's profiled generate, cut short: every decode step of it is the same step
 BWD_SOURCE = "vggt_qwen3_tpu_torch/csrc/flash_bwd.cu"
 BWD_REPLACES = {"flash_bwd_dq": "vggt_qwen3_tpu/ops/flash_attention.py:363",
                 "flash_bwd_dkv": "vggt_qwen3_tpu/ops/flash_attention.py:435"}
@@ -600,6 +609,22 @@ def check_flash(name, B, S, T, NH, NKV, D, *, causal, starts, gen, with_lse=Fals
 PAD_KERNEL = "spin_kernel"  # the kernel of torch.cuda._sleep
 
 
+class Parts:
+    """A phase's seconds by part: ``mark(name)`` closes the part that ran
+    since the previous mark; ``report(label)`` prints them on a line."""
+
+    def __init__(self):
+        self.t, self.secs = time.perf_counter(), {}
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.secs[name] = round(now - self.t, 1)
+        self.t = now
+
+    def report(self, label: str) -> None:
+        print(f"{label} by part (s): {json.dumps(self.secs)}", flush=True)
+
+
 def profiler_pad() -> None:
     """A few short kernels of ``torch.cuda._sleep`` at the end of a profiler
     session, after its work has finished: a session that loses its last
@@ -634,10 +659,10 @@ def device_ms_by_kernel(fn, iters: int, events_fallback: bool = False) -> dict:
             torch.cuda.synchronize()
             profiler_pad()
         by, seen = {}, {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and PAD_KERNEL not in e.name:
-                by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-                seen[e.name] = seen.get(e.name, 0) + 1
+        for name, start, end in device_events(prof):
+            if PAD_KERNEL not in name:
+                by[name] = by.get(name, 0.0) + (end - start) / 1e3 / iters
+                seen[name] = seen.get(name, 0) + 1
         if by and all(n % iters == 0 for n in seen.values()):
             return by
         events.append(sum(seen.values()))
@@ -1737,9 +1762,13 @@ def reference_check_train(seed: int):
     trainable leaves, no element more than three learning-rate steps apart);
     frozen leaves bit-identical. The tolerances are bf16's: both sides round every
     intermediate to bf16 in their own summation orders through 6 blocks and
-    back. Then the card's state is saved and restored: the restored optimizer
-    state equals the saved one bit for bit, and the next two micro steps give
-    the live run's losses exactly and its update to 1e-3."""
+    back. Then the same micro steps through the meshed step of a 1-rank NCCL
+    world (bit for bit the unmeshed card run), whose train state is saved
+    (``checkpoint.save``: the shards of each rank, here the one) and restored
+    onto the mesh (``checkpoint.restore(mesh=...)``): every parameter and
+    optimizer leaf and the counters bit for bit the saved ones, and the next
+    two micro steps give the live run's losses exactly and its update to
+    1e-3."""
     import shutil
 
     import torch
@@ -1836,37 +1865,50 @@ def reference_check_train(seed: int):
         differ = [n for (n, a), (_, b) in zip(trainer.named_leaves(meshed.params), trainer.named_leaves(card.params))
                   if not torch.equal(local(a), b)]
         differ += [f"gradient {n}" for n in card_g if not torch.equal(meshed_g[n], card_g[n])]
-    print(f"training reference check, meshed (1-rank NCCL world, {placed} DTensor leaves): losses/grad norms "
-          f"{meshed_m == card_m}, {len(differ)} leaves or gradients differ from the unmeshed card run; launches "
-          f"{meshed_launches}", flush=True)
-    if meshed_m != card_m or differ or meshed_launches != card_launches or placed == 0:
-        raise AssertionError(f"training reference check: the 1-rank meshed step is not the unmeshed one bit for bit "
-                             f"({meshed_m} vs {card_m}; {differ[:5]})")
+        print(f"training reference check, meshed (1-rank NCCL world, {placed} DTensor leaves): losses/grad norms "
+              f"{meshed_m == card_m}, {len(differ)} leaves or gradients differ from the unmeshed card run; launches "
+              f"{meshed_launches}", flush=True)
+        if meshed_m != card_m or differ or meshed_launches != card_launches or placed == 0:
+            raise AssertionError(f"training reference check: the 1-rank meshed step is not the unmeshed one bit for "
+                                 f"bit ({meshed_m} vs {card_m}; {differ[:5]})")
 
-    # save, restore, and the same next two micro steps
-    out = REPO / "ckpts" / "chip_smoke_train"
-    shutil.rmtree(out, ignore_errors=True)
-    try:
-        ckpt.save(card, out / "step_4")
-        restored = ckpt.restore(ckpt.latest_step_dir(out), "cuda")
-        for key in ("mu", "nu", "acc"):
-            a, b = card.opt_state[key], restored.opt_state[key]
-            if a.keys() != b.keys() or not all(torch.equal(a[n], b[n]) for n in a):
-                raise AssertionError(f"restore: optimizer state {key} differs")
-        if (restored.step, restored.opt_state["gradient_step"], restored.opt_state["mini_step"]) != \
-                (card.step, card.opt_state["gradient_step"], card.opt_state["mini_step"]):
-            raise AssertionError("restore: counters differ")
-        before = {n: t.float().clone() for n, t in trainer.named_leaves(card.params)}
-        live, _, live_m = run(card, card_tx, "cuda", range(4, 6))
-        again, _, again_m = run(restored, trainer.make_tx(st, restored.params), "cuda", range(4, 6))
-    finally:
+        # the meshed state saved and restored onto the mesh, and the same next two micro steps
+        out = REPO / "ckpts" / "chip_smoke_train"
         shutil.rmtree(out, ignore_errors=True)
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ckpt.save(meshed, out / "step_4")
+            save_s = time.perf_counter() - t
+            t = time.perf_counter()
+            restored = ckpt.restore(ckpt.latest_step_dir(out), "cuda", mesh=mesh)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t
+            files = sorted(p.name for p in (out / "step_4").iterdir())
+            leaves = lambda st_: dict(trainer.named_leaves({"params": st_.params, **{  # noqa: E731
+                k: st_.opt_state[k] for k in ("mu", "nu", "acc")}}))
+            saved, back = leaves(meshed), leaves(restored)
+            differ = [n for n in saved if n not in back or type(back[n]) is not type(saved[n])
+                      or not torch.equal(local(saved[n]), local(back[n]))]
+            if list(saved) != list(back) or differ:
+                raise AssertionError(f"restore: {len(differ)} leaves differ ({differ[:5]})")
+            if (restored.step, restored.opt_state["gradient_step"], restored.opt_state["mini_step"]) != \
+                    (meshed.step, meshed.opt_state["gradient_step"], meshed.opt_state["mini_step"]):
+                raise AssertionError("restore: counters differ")
+            before = {n: local(t).float().clone() for n, t in trainer.named_leaves(meshed.params)}
+            live, _, live_m = run(meshed, tx, "cuda", range(4, 6), sharding)
+            again, _, again_m = run(restored, trainer.make_tx(st, restored.params), "cuda", range(4, 6),
+                                    trainer.state_shardings(restored, mesh))
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
     num = den = 0.0
     for (n, a), (_, b) in zip(trainer.named_leaves(live.params), trainer.named_leaves(again.params)):
-        num += (a.float() - b.float()).norm().item() ** 2
-        den += (a.float() - before[n]).norm().item() ** 2
+        num += (local(a).float() - local(b).float()).norm().item() ** 2
+        den += (local(a).float() - before[n]).norm().item() ** 2
     rel = (num / max(den, 1e-30)) ** 0.5
-    print(f"training restore check: next losses live {live_m} restored {again_m}; updates rel {rel:.3e}", flush=True)
+    print(f"training restore check (1-rank NCCL world): saved in {save_s:.3f} s ({', '.join(files)}), restored onto "
+          f"the mesh in {restore_s:.3f} s, {len(saved)} leaves bit for bit; next losses live {live_m} restored "
+          f"{again_m}; updates rel {rel:.3e}", flush=True)
     if [m[0] for m in live_m] != [m[0] for m in again_m] or not rel <= 1e-3 or den == 0.0:
         raise AssertionError("restore: the restored state does not give the live run's next steps")
 
@@ -1894,12 +1936,16 @@ def train_path(args):
     vc = base.model.vision
     blocks = vc.patch_depth + 2 * vc.num_layers  # 72 attentions a forward
     result = {}
+    parts = Parts()
     for frozen, n_micro in ((True, 2), (False, 2 * TRAIN_GRAD_ACCUM)):
         with one_rank_mesh() as mesh:
             train_run(args, base, frozen, n_micro, mesh, tok, img_id, blocks, result)
+        parts.mark("tower frozen" if frozen else "tower trained, with its profile")
     gc.collect()
     torch.cuda.empty_cache()
     sft_cli_check(args)
+    parts.mark("sft CLI")
+    parts.report("training path")
     return result
 
 
@@ -1920,9 +1966,8 @@ def train_run(args, base, frozen: bool, n_micro: int, mesh, tok, img_id: int, bl
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     state, tx = trainer.init_train_state(torch.Generator(device="cuda").manual_seed(args.seed), st,
-                                         dtype=st.model.dtype)
+                                         dtype=st.model.dtype, mesh=mesh)
     shardings = trainer.state_shardings(state, mesh)
-    trainer.shard_state(state, shardings)
     torch.cuda.synchronize()
     leaves = {n: local(p) for n, p in trainer.named_leaves(state.params)}
     n_params = sum(p.numel() for p in leaves.values())
@@ -1998,13 +2043,28 @@ def train_run(args, base, frozen: bool, n_micro: int, mesh, tok, img_id: int, bl
         print(f"training ({what}): micro step {mean:.3f} s (mean of the synchronised walls after the first), "
               f"{result['tokens_per_s']:.1f} text tokens/s padded, {result['valid_tokens_per_s']:.1f} unpadded, "
               f"{result['views_per_s']:.2f} views/s; launches in the run {json.dumps(run_counts)}", flush=True)
-        # one more update's pair of micro steps: the second, which runs the optimizer, under the profiler
+        # one more update's pair of micro steps: the second, which runs the optimizer, under the profiler,
+        # tracing the device only with the update between two marker kernels; one session (in the whole
+        # script every session of this step missed one of its 144 flash forwards: more sessions repeat it)
         state, _ = step_fn(state, sft.to_device(next(loader), "cuda"),
                            trainer.step_generator(st.train.seed + 1, n_micro, "cuda"))
         batch = sft.to_device(next(loader), "cuda")
         gen = trainer.step_generator(st.train.seed + 1, n_micro + 1, "cuda")
-        profile_breakdown("training micro step (freeze_vision false, with the update)",
-                          lambda: step_fn(state, batch, gen), unprofiled_s=mean, range_family="optimizer")
+        update = tx.update
+
+        def marked_update(*a):
+            torch.cuda._sleep(MARK_CYCLES)
+            out = update(*a)
+            torch.cuda._sleep(MARK_CYCLES)
+            return out
+
+        tx.update = marked_update
+        try:
+            profile_breakdown("training micro step (freeze_vision false, with the update)",
+                              lambda: step_fn(state, batch, gen), unprofiled_s=mean, tries=1,
+                              marked_range=("optimizer", 2))
+        finally:
+            tx.update = update
     del state, tx, leaves, loader, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -2014,11 +2074,15 @@ def sft_cli_check(args):
     """One call of the sft CLI on the card — ``--fsdp 1 --tiny --mock_vision
     --max_steps 2`` on ``configs/stage1_3d.yaml`` — for its mesh wiring on
     NCCL: the mesh line printed, two finite losses logged, the final
-    checkpoint written, and no process group left behind."""
+    checkpoint written (``train/checkpoint.py``'s format) and read back whole
+    by this process with no process group (what inference loads), and no
+    process group left behind."""
     import shutil
 
+    import torch
     import torch.distributed as dist
 
+    from vggt_qwen3_tpu_torch.train import checkpoint as ckpt
     from vggt_qwen3_tpu_torch.train import sft
 
     out = REPO / "ckpts" / "chip_smoke_sft"
@@ -2029,7 +2093,8 @@ def sft_cli_check(args):
                   str(REPO), "--fsdp", "1", "--tiny", "--mock_vision", "--max_steps", "2", "--log_every_steps", "1",
                   "--seed", str(args.seed), "--device", "cuda"])
         losses = [json.loads(x)["loss"] for x in (out / "metrics.jsonl").read_text().splitlines()]
-        saved = (out / "step_2" / "params.pt").is_file()
+        saved = ckpt.is_step_dir(out / "step_2") and all(
+            torch.isfinite(t.float()).all() for t in _leaves(ckpt.load_params(out / "step_2", "cuda")))
     finally:
         shutil.rmtree(out, ignore_errors=True)
     print(f"sft CLI (--fsdp 1 --tiny --mock_vision, 2 steps on a 1-rank NCCL world): losses {losses}, checkpoint "
@@ -2039,6 +2104,7 @@ def sft_cli_check(args):
 
 
 RECIPE_CYCLE = 2  # micro steps in the recipe phase's timed cycle (the recipe accumulates 32)
+RECIPE_MICRO_REPS, RECIPE_CYCLE_REPS = 2, 1  # timed micro steps and cycles after their warm-ups (the bench's 3, 2)
 RECIPE_MAX_STEPS = 4  # its schedule horizon (30,000): the second update runs at the peak learning rate
 STAGE2_BATCH, STAGE2_GRAD_ACCUM = 2, 2  # the stage-2 run (the recipe: 4 rows, grad_accum 64)
 MARK_CYCLES = 100  # a torch.cuda._sleep marker kernel on either side of each optimizer update in a profile
@@ -2266,10 +2332,10 @@ def train_recipes_path(args):
     grad_norm = float(trainer.global_norm(grads.values()))
     del grads
     _zero_counters()
-    res = bench.train_measure(s)
+    res = bench.train_measure(s, micro_reps=RECIPE_MICRO_REPS, cycle_reps=RECIPE_CYCLE_REPS)
     torch.cuda.synchronize()
     run_counts = _counters()
-    n_micro = 1 + bench.MICRO_REPS + (1 + bench.CYCLE_REPS) * s.k
+    n_micro = 1 + RECIPE_MICRO_REPS + (1 + RECIPE_CYCLE_REPS) * s.k
     want = {k: (blocks if k == "flash_fwd" else 0) for k in per_micro}
     print(f"training recipes (a): micro step {res['micro_s']:.4f} s (walls {res['micro_walls_s']}), cycle of {s.k} "
           f"micro steps + the {bargs.opt} update {res['cycle_s']:.4f} s (walls {res['cycle_walls_s']}), update "
@@ -2283,7 +2349,7 @@ def train_recipes_path(args):
                              f"expected {want} a micro step")
     if not (np.isfinite(float(loss)) and np.isfinite(grad_norm)):
         raise AssertionError(f"training recipes (a): loss {float(loss)} or grad_norm {grad_norm} not finite")
-    if s.opt_state["gradient_step"] != 1 + bench.CYCLE_REPS:
+    if s.opt_state["gradient_step"] != 1 + RECIPE_CYCLE_REPS:
         raise AssertionError(f"training recipes (a): {s.opt_state['gradient_step']} updates")
     leaves = dict(trainer.named_leaves(s.params))
     moved = [n for n in s.trainable if _fingerprint(leaves[n]) != prints[n]]
@@ -2314,7 +2380,7 @@ def train_recipes_path(args):
             del g
 
     profile_breakdown(f"training recipes (a): one cycle ({s.k} micro steps + the {bargs.opt} update)", marked_cycle,
-                      unprofiled_s=res["cycle_s"], host_ops=False, marked_range=("optimizer", 2 * s.k))
+                      unprofiled_s=res["cycle_s"], marked_range=("optimizer", 2 * s.k))
     out["recipe"] = dict(res, per_micro=per_micro, counts=run_counts, loss=float(loss), grad_norm=grad_norm)
     del s, leaves, prints
     gc.collect()
@@ -2455,10 +2521,12 @@ def check_flash_ring(gen) -> dict:
 
 
 BENCH_MODES = ("e2e", "qa", "spec", "serve", "serve_sla", "ring")
-# timed repetitions of each e2e/qa/spec/ring measurement, after its warm-up call (the root bench's: 3–5): at the
-# card's host-bound pace serve_sla's 3 × 96 Poisson arrivals alone take ~1.5 minutes
+# timed repetitions of each e2e/qa/spec/ring measurement, after its warm-up call (the root bench's: 3–5)
 BENCH_MODE_REPS = 1
 BENCH_MODES_ARGV = ["--device", "cuda"]  # the modes' full width on the card (the root bench's shapes and defaults)
+# serve_sla's requests a load (the root's 96): at the card's host-bound pace 3 × 96 Poisson arrivals and two
+# closed passes of 64 took 137 s of the phase; 32 a load (and closed passes of 32) hold the same paths
+BENCH_MODE_ARGV = {"serve_sla": ["--sla_reqs", "32"]}
 STEP_W8 = ("fused_qkv_w8", "fused_linear_w8", "fused_mlp_w8")
 PATH_KERNELS = ("flash_fwd", "decode_attention", "block_verify_attention", *STEP_W8, "fused_head_argmax")
 
@@ -2468,7 +2536,8 @@ def bench_mode_flash_launches(mode: str, res: dict, cfg) -> int:
     a VGGT encode launches one a block (the patch embedder's, then a frame
     and a global block a layer), a prefill one a Qwen3 layer; every timed
     call follows one warm-up call; serve and serve_sla prefill once an
-    admission dispatch (``admit_dispatches``, of every pass)."""
+    admission dispatch (the timed pass's or the loads' ``admit_dispatches``
+    and those of the passes before it)."""
     vis = cfg.vision.patch_depth + 2 * cfg.vision.num_layers
     pre = cfg.text.num_layers
     calls = 1 + BENCH_MODE_REPS
@@ -2481,7 +2550,7 @@ def bench_mode_flash_launches(mode: str, res: dict, cfg) -> int:
     if mode == "serve":
         return pre * (res["warmup_admit_dispatches"] + res["admit_dispatches"])
     if mode == "serve_sla":
-        return pre * res["admit_dispatches"]
+        return pre * (res["closed_admit_dispatches"] + res["admit_dispatches"])
     return calls + 2 + 1  # ring: the direct forward's calls, the merge's two halves, the one-rank ring's one step
 
 
@@ -2638,9 +2707,10 @@ def bench_modes_path(args):
     functions at full width, with the root's shapes and defaults, on one
     seeded W8 VLM tree (Qwen3-4B W8, VGGT-1B and the Perceiver bf16; serve
     and serve_sla take its text), ``BENCH_MODE_REPS`` timed repetitions
-    after each warm-up instead of the root's 3–5. Each mode runs with the
-    launch counters set to 0 just before it and read just after
-    (``bench_mode_launches_ok``: kernel 1's count exact), with the first
+    after each warm-up instead of the root's 3–5, and serve_sla at 32
+    requests a load (``BENCH_MODE_ARGV``) instead of the root's 96. Each
+    mode runs with the launch counters set to 0 just before it and read just
+    after (``bench_mode_launches_ok``: kernel 1's count exact), with the first
     launch of each kernel at every shape the mode gives it copied aside and
     held to the plain version after the run (``first_launches``,
     ``hold_first_launches``; every kernel the mode launched is held), and
@@ -2655,7 +2725,8 @@ def bench_modes_path(args):
     from vggt_qwen3_tpu_torch import bench
     from vggt_qwen3_tpu_torch.ops import flash_attention as fa
 
-    margs = {m: bench.parse_args(["--mode", m, "--seed", str(args.seed), *BENCH_MODES_ARGV]) for m in BENCH_MODES}
+    margs = {m: bench.parse_args(["--mode", m, "--seed", str(args.seed), *BENCH_MODES_ARGV,
+                                  *BENCH_MODE_ARGV.get(m, [])]) for m in BENCH_MODES}
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -2759,11 +2830,13 @@ def main_path(args):
     from vggt_qwen3_tpu_torch.ops import flash_attention as fa
 
     stage = full_stage()
+    parts = Parts()
     t0 = time.perf_counter()
     params = qa.load_model(stage, rng_seed=args.seed, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"main path: random init of {n_params / 1e9:.3f} B params in {time.perf_counter() - t0:.1f} s", flush=True)
+    parts.mark("init")
     tok = load_tokenizer(None)  # random weights: the byte tokenizer, no files needed
     samples = load_samples(args.seed)
 
@@ -2812,6 +2885,7 @@ def main_path(args):
                 raise AssertionError(f"kv={kv}: launch counts {cnt_a}, expected {want_flash} flash "
                                      f"and a positive multiple of {stage.model.text.num_layers} decode")
             runs[kv] = cnt_a
+        parts.mark("bf16 and int8 runs, twice each")
         # the same path once with W8 text weights and the int8 cache
         dm.launches.update(dict.fromkeys(dm.launches, 0))
         da.launches = 0
@@ -2844,6 +2918,7 @@ def main_path(args):
             raise AssertionError(f"W8 QA run with LoRA: {len(res_lora)} records, launches {dm.launches}, "
                                  f"expected {want}")
         del lora_text
+        parts.mark("W8 and W8 + LoRA runs")
     finally:
         qa.generate_batch = real_generate_batch
 
@@ -2884,10 +2959,13 @@ def main_path(args):
           f"host-timed phases: vision+splice {t_vision:.3f} s, prefill {t_prefill:.3f} s, "
           f"generate (prefill + {steps} decode steps) {t_gen:.3f} s, "
           f"{(t_gen - t_prefill) / max(steps, 1) * 1e3:.2f} ms a decode step", flush=True)
+    parts.mark("outputs and host-timed phases")
+    # one device-only session: a QA batch holds the generate, whose kernels it shows by family
     profile_breakdown("QA batch", lambda: qa.run_inference(
         params, stage, tok, samples, max_new_tokens=args.max_new_tokens, batch_size=8, verbose=False,
         device="cuda"), unprofiled_s=walls[None])
-    profile_breakdown("generate", generate, unprofiled_s=t_gen)
+    parts.mark("profile")
+    parts.report("main path")
     del params
     torch.cuda.empty_cache()
     return runs
@@ -2898,6 +2976,8 @@ def w8_bench_path(args):
     W8 weights, int8 cache, B=368, prompt 32, 128 greedy steps. The launch
     counters are set to 0 just before the first timed ``generate`` and read
     just after it; the second timed run must give the same tokens."""
+    import dataclasses
+
     import torch
 
     from vggt_qwen3_tpu_torch import bench
@@ -2907,6 +2987,7 @@ def w8_bench_path(args):
 
     bargs = bench.parse_args(["--seed", str(args.seed)])
     counts = {}
+    parts = Parts()
 
     @contextlib.contextmanager
     def count(i):
@@ -2935,9 +3016,13 @@ def w8_bench_path(args):
     t0, t1 = res["tokens"]
     if t0.shape != (B, N) or not np.array_equal(t0, t1) or not ((t0 >= 0) & (t0 < s.cfg.vocab_size)).all():
         raise AssertionError("W8 bench: the repeat run gave other tokens, or tokens out of range")
-    gen_wall = min(res["walls_s"])
-    # device-only tracing: the host ops of 128 steps at B = 368 cost minutes of profiler bookkeeping
-    profile_breakdown("W8 generate", lambda: bench.timed_generate(s), unprofiled_s=gen_wall, host_ops=False)
+    parts.mark("setup, warm-up and timed generates")
+    short = dataclasses.replace(s.gen_cfg, max_new_tokens=W8_PROFILE_STEPS)
+    _, short_s = bench.timed_generate(s, short)
+    profile_breakdown(f"W8 generate ({W8_PROFILE_STEPS} steps)", lambda: bench.timed_generate(s, short),
+                      unprofiled_s=short_s)
+    parts.mark("profile")
+    parts.report("W8 bench")
     del s
     torch.cuda.empty_cache()
     return counts, res
@@ -2949,13 +3034,14 @@ QUANT_GATE_SPLITS = ("sqa3d", "scanqa", "arkit")  # evals.baseline's placeholder
 def quant_path(args, w8_res: dict):
     """The W8A8 and W4 modes and penalised text generation at full width:
 
-    (a) the port's bench in-process with ``--quant w8a8`` (Qwen3-4B, W8A8
-    layers, the tied W8 embedding, int8 cache, B=368, prompt 32, 128 greedy
-    steps): tok/s, the decode step and peak memory beside the W8 bench's of
-    this run, the launches of one timed ``generate`` (counters set to 0 just
+    (a) the port's bench (``bench.setup``, ``bench.timed_generate``) with
+    ``--quant w8a8`` (Qwen3-4B, W8A8 layers, the tied W8 embedding, int8
+    cache, B=368, prompt 32, 128 greedy steps) after a 2-step warm-up: tok/s
+    of one timed ``generate``, the decode step and peak memory beside the W8
+    bench's of this run, that generate's launches (counters set to 0 just
     before it: kernels 1, 2 and 7 as the shapes give them, kernels 4–6 none),
-    tokens identical on the repeat, and a 2-step profile (the int8 GEMMs and
-    any weight copy);
+    tokens identical on one repeat, and a device-only 2-step profile (the
+    int8 GEMMs and any weight copy);
     (b) the quality gate, ``evals.baseline.evaluate`` on the placeholder test
     splits with the full QA stage at random weights: one bf16 pass, compared
     with W8A8 and with W4 weights (int8 cache), 32 new tokens; kernels 4–6
@@ -2993,32 +3079,45 @@ def quant_path(args, w8_res: dict):
             torch.cuda.synchronize()
             counts.update(_counters())
 
+    parts = Parts()
     t = time.perf_counter()
     s = bench.setup(bargs)
     torch.cuda.synchronize()
     print(f"W8A8 bench: random init + quantize in {time.perf_counter() - t:.1f} s", flush=True)
-    res = bench.run(bargs, around_rep=count, s=s)
+    # the W8 bench's protocol without its repetitions: a 2-step warm-up (which also times the 2-step
+    # profile's run unprofiled), the prefill alone, and two whole generates: the first counted and
+    # timed, the second the repeat that must give its tokens
+    short = dataclasses.replace(s.gen_cfg, max_new_tokens=2)
+    bench.timed_generate(s, short)
+    _, short_s = bench.timed_generate(s, short)
+    _, prefill_s = bench.timed_generate(s, dataclasses.replace(s.gen_cfg, max_new_tokens=0))
+    torch.cuda.reset_peak_memory_stats()
+    walls, tokens = [], []
+    for i in range(2):
+        with count(i):
+            tok_i, secs = bench.timed_generate(s)
+        walls.append(secs)
+        tokens.append(tok_i)
     B, N, L = bargs.batch, bargs.decode, s.cfg.num_layers
-    print(f"W8A8 bench (Qwen3-4B, W8A8 + int8 KV, B={B}, prompt {bargs.prompt}, {N} steps): {res['tok_s']:.1f} tok/s, "
-          f"walls {res['walls_s']} s, prefill {res['prefill_s'] * 1e3:.1f} ms, decode step {res['step_ms']:.2f} ms, "
-          f"peak memory {res['peak_gib']:.2f} GiB; W8 in this run: {w8_res['tok_s']:.1f} tok/s, decode step "
-          f"{w8_res['step_ms']:.2f} ms, peak memory {w8_res['peak_gib']:.2f} GiB | {res['card']}", flush=True)
+    res = dict(tok_s=B * N / walls[0], walls_s=walls, prefill_s=prefill_s, step_ms=(walls[0] - prefill_s) / N * 1e3,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, card=bench.card_line())
+    print(f"W8A8 bench (Qwen3-4B, W8A8 + int8 KV, B={B}, prompt {bargs.prompt}, {N} steps): {res['tok_s']:.1f} tok/s "
+          f"(the first timed generate), walls {res['walls_s']} s, prefill {res['prefill_s'] * 1e3:.1f} ms, decode step "
+          f"{res['step_ms']:.2f} ms, peak memory {res['peak_gib']:.2f} GiB; W8 in this run: {w8_res['tok_s']:.1f} "
+          f"tok/s, decode step {w8_res['step_ms']:.2f} ms, peak memory {w8_res['peak_gib']:.2f} GiB | {res['card']}",
+          flush=True)
     print(f"W8A8 bench launches in one generate: {json.dumps(counts)}", flush=True)
     want = dict.fromkeys(counts, 0)
     want.update(flash_fwd=L, decode_attention=L * N, fused_head_argmax=N + 1)
     if counts != want:
         raise AssertionError(f"W8A8 bench launch counts {counts}, expected {want}")
-    t0, t1 = res["tokens"]
+    t0, t1 = tokens
     if t0.shape != (B, N) or not np.array_equal(t0, t1) or not ((t0 >= 0) & (t0 < s.cfg.vocab_size)).all():
         raise AssertionError("W8A8 bench: the repeat run gave other tokens, or tokens out of range")
-    short = dataclasses.replace(s.gen_cfg, max_new_tokens=2)
-    t = time.perf_counter()
-    bench.timed_generate(s, short)
-    torch.cuda.synchronize()
-    profile_breakdown("W8A8 generate (2 steps)", lambda: bench.timed_generate(s, short),
-                      unprofiled_s=time.perf_counter() - t)
+    profile_breakdown("W8A8 generate (2 steps)", lambda: bench.timed_generate(s, short), unprofiled_s=short_s)
     del s
     torch.cuda.empty_cache()
+    parts.mark("(a) W8A8 bench")
 
     stage = full_stage()
     params = qa.load_model(stage, rng_seed=args.seed, device="cuda")
@@ -3097,6 +3196,7 @@ def quant_path(args, w8_res: dict):
               f"non-empty predictions {sum(bool(x['prediction']) for r in bf16 for x in r['records'])} "
               f"(bf16) of {len(firsts)}", flush=True)
     print(f"quality gate: bf16 + W8A8 passes {t_a8:.1f} s, W4 pass {t_w4:.1f} s", flush=True)
+    parts.mark("(b) quality gate")
 
     # (c) the vision tower with W8A8 block weights beside W8
     samples = load_samples(args.seed)
@@ -3133,6 +3233,7 @@ def quant_path(args, w8_res: dict):
           f"{rel:.4g}", flush=True)
     if not rel < 0.1:
         raise AssertionError(f"vision W8A8 features far from W8's: rel RMS {rel}")
+    parts.mark("(c) vision")
 
     # (d) penalised text generation
     cfg = stage.model.text
@@ -3155,6 +3256,8 @@ def quant_path(args, w8_res: dict):
         raise AssertionError("generate_text: the repeat gave other tokens, or a wrong shape")
     print(f"generate_text (bf16, penalty 1.1 over the prompt, {Bt} × {St} ids, {Nt} tokens): {secs:.3f} s, "
           f"launches flash {c['flash_fwd']}, decode {c['decode_attention']}; repeat identical", flush=True)
+    parts.mark("(d) generate_text")
+    parts.report("W8A8/W4 and text path")
     del params
     torch.cuda.empty_cache()
     return counts
@@ -3174,6 +3277,7 @@ def arkit_path(args):
 
     stage = arkit_stage()
     L, N = stage.model.text.num_layers, ARKIT_NEW_TOKENS
+    parts = Parts()
     t0 = time.perf_counter()
     params = qa.load_model(stage, rng_seed=args.seed, device="cuda")
     torch.cuda.synchronize()
@@ -3188,14 +3292,17 @@ def arkit_path(args):
         return arkit.run_inference(params, stage, tok, samples, max_new_tokens=n, batch_size=4, verbose=False,
                                    constrained_json=True, speculative=spec, device="cuda", stats=stats)[0]
 
-    runs = []
+    runs, gaps = [], None
     for spec in (False, True, True):
         stats = []
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         fa.launches = da.launches = da.verify_launches = 0
         t = time.perf_counter()
-        res = infer(spec, stats=stats)
+        if spec:
+            res = infer(spec, stats=stats)
+        else:  # the plain run records its top-2 gaps on the device (a few launches a step), for the near-tie rule
+            res, gaps = constrained_gaps(engine, lambda: infer(spec, stats=stats))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         counts = dict(flash_fwd=fa.launches, decode_attention=da.launches, block_verify_attention=da.verify_launches)
@@ -3217,6 +3324,7 @@ def arkit_path(args):
             if list(json.loads(text)) != SCHEMA_KEYS:
                 raise AssertionError(f"ARKit path: a generation is not a schema object: {text!r}")
     plain, spec_a, spec_b = runs
+    parts.mark("init, plain run and two speculative runs")
     if spec_a["res"] != spec_b["res"] or not np.array_equal(spec_a["tokens"], spec_b["tokens"]):
         raise AssertionError("ARKit path: the speculative repeat gave other records")
     n_raw = sum(1 for r in plain["res"] if _parses_to_schema(r["raw_prediction"]))
@@ -3225,7 +3333,6 @@ def arkit_path(args):
     if spec_a["res"] == plain["res"] and np.array_equal(spec_a["tokens"], plain["tokens"]):
         print("ARKit path: speculative records and tokens identical to the plain constrained run's", flush=True)
     else:  # the first differing step of each row must be a near-tie of the plain run
-        _, gaps = constrained_gaps(engine, lambda: infer(False))
         noise = schedule_witness(params, stage, tok, samples, plain["tokens"])
         limit = max(1e-3, 2 * noise)
         print(f"ARKit path: speculative tokens differ from the plain run's; with plain attention the two schedules' "
@@ -3239,14 +3346,15 @@ def arkit_path(args):
                       f"of max|logit|", flush=True)
                 if not gaps[t, b] < limit:
                     raise AssertionError(f"ARKit path: row {b} differs at a decisive step {t} ({gaps[t, b]:.3e})")
-    # the profiler's bookkeeping grows with the kernel events (~1,800 an
-    # iteration): profile a speculative run cut at ARKIT_PROFILE_TOKENS
+    parts.mark("holds (verify block, near-ties)")
     torch.cuda.synchronize()
     t = time.perf_counter()
     infer(True, ARKIT_PROFILE_TOKENS)
     torch.cuda.synchronize()
     profile_breakdown(f"ARKit speculative run ({ARKIT_PROFILE_TOKENS} new tokens)",
-                      lambda: infer(True, ARKIT_PROFILE_TOKENS), unprofiled_s=time.perf_counter() - t, host_ops=False)
+                      lambda: infer(True, ARKIT_PROFILE_TOKENS), unprofiled_s=time.perf_counter() - t)
+    parts.mark("profile")
+    parts.report("ARKit path")
     del params
     torch.cuda.empty_cache()
     return plain["counts"], spec_a["counts"]
@@ -3515,13 +3623,9 @@ def serve_path(args, smi: str):
     real_loader = server.load_images
     kw = dict(num_slots=SERVE_SLOTS, max_new_tokens=args.max_new_tokens, prompt_bucket=SERVE_BUCKET,
               decode_chunk=SERVE_CHUNK, kv_dtype="int8", track_metrics=True)
-    runs, refs, parts = {}, {}, {}
-    t_mark = [time.perf_counter()]
-
-    def mark(part):  # seconds since the previous mark
-        now = time.perf_counter()
-        parts[part] = round(now - t_mark[0], 1)
-        t_mark[0] = now
+    runs, refs = {}, {}
+    parts = Parts()
+    mark = parts.mark
 
     try:
         slots = _Served(server.SlotQAService(stage, tok, params, **kw), views)
@@ -3603,10 +3707,9 @@ def serve_path(args, smi: str):
         runs["spec"] = counts
         mark("speculative warm-up and run")
 
-        # one profiled window (the profiler's bookkeeping grows with the kernel
-        # events, ~1,500 a step): 4 requests to the slots service and 1 to the
+        # one profiled window: 2 requests to the slots service and 1 to the
         # speculative one at once, 8 new tokens each — kernels 1–6 in one session
-        window = [dict(r, max_new_tokens=8) for r in requests[:4]]
+        window = [dict(r, max_new_tokens=8) for r in requests[:2]]
         spec_window = [dict(requests[4], max_new_tokens=8)]
 
         def both():
@@ -3618,8 +3721,8 @@ def serve_path(args, smi: str):
         t = time.perf_counter()
         both()
         torch.cuda.synchronize()
-        missed = profile_breakdown(f"serving window (4 requests to the slots service, 1 to the speculative one) | {smi}",
-                                   both, unprofiled_s=time.perf_counter() - t, host_ops=False, tries=5)
+        missed = profile_breakdown(f"serving window (2 requests to the slots service, 1 to the speculative one) | {smi}",
+                                   both, unprofiled_s=time.perf_counter() - t, tries=5)
         if missed:
             raise AssertionError(f"serving: the profiler saw fewer launches than the wrappers counted {missed}")
         mark("profile window")
@@ -3664,7 +3767,7 @@ def serve_path(args, smi: str):
               f"{SERVE_SLOTS / bwall:.3f} requests/s; launches {json.dumps(counts)} | {smi}", flush=True)
         runs["batch"] = counts
         mark("batch")
-        print(f"serving path by part (s): {json.dumps(parts)}", flush=True)
+        parts.report("serving path")
     finally:
         server.load_images = real_loader
     del params
@@ -3905,26 +4008,34 @@ def missed_launches(launched: dict, kernel_names: list) -> dict:
     return {f: (seen.get(f, 0), n) for f, n in launched.items() if seen.get(f, 0) < n}
 
 
-def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None, host_ops: bool = True,
-                      tries: int = 3, marked_range=None):
-    """One more run of a main-path phase under torch.profiler: device time by
-    kernel family and by kernel. The profiler slows the host, so the idle
-    share is also given against ``unprofiled_s``, the same run's wall time
-    without it. With ``range_family``, the kernels launched by ops inside the
-    ``record_function`` range of that name count to that family. With
-    ``marked_range`` = (family, n) — for device-only tracing, where no host
-    range is recorded — the run brackets each range with a
-    ``torch.cuda._sleep`` marker kernel on either side (n markers in all),
-    and the kernels that start between the two markers of a pair count to
-    that family. A session
-    that saw fewer kernels of one of our families than its wrappers launched
-    is run again, ``tries`` sessions in all; each family line gives its
-    launches, and if none of the sessions saw them all, the last one's lines say how
-    many it saw ("short"): their figures miss those launches' time. With
-    ``host_ops`` False only the device is traced (no host ops: less host
-    overhead for a host-bound run; no ``range_family``).
-    Returns those of the last session, {family: (seen, launched)} (empty
-    when it saw every launch)."""
+def device_events(prof) -> list:
+    """The device records of a finished ``torch.profiler`` session, (name,
+    start µs, end µs), read from its raw Kineto events: ``prof.events()``
+    first builds the host-side event tree, tens of microseconds an event in
+    Python, which at a path profile's ~10⁵ events costs tens of seconds."""
+    import torch
+
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            out.append((e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3))
+    return out
+
+
+def profile_breakdown(label: str, run, unprofiled_s: float, tries: int = 3, marked_range=None):
+    """One more run of a main-path phase under torch.profiler, tracing the
+    device only (no host ops: less overhead for a host-bound run): device
+    time by kernel family and by kernel. The profiler slows the host, so the
+    idle share is also given against ``unprofiled_s``, the same run's wall
+    time without it. With ``marked_range`` = (family, n), the run brackets
+    each range with a ``torch.cuda._sleep`` marker kernel on either side (n
+    markers in all), and the kernels that start between the two markers of
+    a pair count to that family. A session that saw fewer kernels of one of
+    our families than its wrappers launched is run again, ``tries`` sessions
+    in all; each family line gives its launches, and if none of the sessions
+    saw them all, the last one's lines say how many it saw ("short"): their
+    figures miss those launches' time. Returns those of the last session,
+    {family: (seen, launched)} (empty when it saw every launch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3932,44 +4043,35 @@ def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None, h
         before = our_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t) * 1e6
             profiler_pad()
         launched = {f: n - before[f] for f, n in our_launches().items() if n > before[f]}
-        kernels = [e for e in prof.events()  # a range's span on the device is no kernel
-                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-                   and PAD_KERNEL not in e.name]
-        missed = missed_launches(launched, [e.name for e in kernels])
+        events = device_events(prof)
+        kernels = [e for e in events if PAD_KERNEL not in e[0]]
+        missed = missed_launches(launched, [name for name, _, _ in kernels])
         if not missed:
             break
         print(f"profile {label}: the session missed launches (seen, launched) {json.dumps(missed)}", flush=True)
     by_name, ranged, each = {}, {}, {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        each.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for name, start, end in kernels:
+        by_name[name] = by_name.get(name, 0.0) + end - start
+        each.setdefault(name, []).append(end - start)
+    range_family = None
     if marked_range is not None:
         range_family, n_marks = marked_range
-        marks = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                        and PAD_KERNEL in e.name), key=lambda e: e.time_range.start)[:n_marks]
+        marks = sorted((e for e in events if PAD_KERNEL in e[0]), key=lambda e: e[1])[:n_marks]
         if len(marks) < n_marks:  # the profiler pad's kernels come after the run's markers
             print(f"profile {label}: {len(marks)} of {n_marks} range markers seen: no {range_family!r} range",
                   flush=True)
-        spans = [(marks[i].time_range.end, marks[i + 1].time_range.start) for i in range(0, len(marks) - 1, 2)]
-        for e in kernels:
-            if any(a <= e.time_range.start < b for a, b in spans):
-                ranged[e.name] = ranged.get(e.name, 0.0) + e.time_range.elapsed_us()
+        spans = [(marks[i][2], marks[i + 1][1]) for i in range(0, len(marks) - 1, 2)]
+        for name, start, end in kernels:
+            if any(a <= start < b for a, b in spans):
+                ranged[name] = ranged.get(name, 0.0) + end - start
         if not ranged:
             print(f"profile {label}: no kernel ran between the {range_family!r} markers", flush=True)
-    elif range_family is not None:
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA and e.kernels and _in_range(e, range_family):
-                for k in e.kernels:
-                    ranged[k.name] = ranged.get(k.name, 0.0) + k.duration
-        if not ranged:
-            print(f"profile {label}: no kernel was launched inside the {range_family!r} range", flush=True)
     busy = sum(by_name.values())
     if busy <= 0:
         print(f"profile {label}: the profiler saw no device time", flush=True)
@@ -4000,15 +4102,6 @@ def profile_breakdown(label: str, run, unprofiled_s: float, range_family=None, h
         print(f"profile {label} flash_fwd instance {n[n.find('flash_fwd_kernel'):].split('(')[0]}: {len(d)} launches, "
               f"{sum(d) / 1e3:.1f} ms; each (ms) {[round(x / 1e3, 3) for x in d]}", flush=True)
     return missed
-
-
-def _in_range(event, name: str) -> bool:
-    """Whether a profiled host op runs inside a ``record_function`` range ``name``."""
-    while event is not None:
-        if event.name == name:
-            return True
-        event = event.cpu_parent
-    return False
 
 
 def _to_device(tree, dev):

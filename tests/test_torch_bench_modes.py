@@ -266,8 +266,9 @@ def test_ring_mode_holds_its_merge_and_ring_to_the_direct_forward():
 
 def _jax_serve(jtext, n_req, slots, P, N, *, struct, spec, guard, warm):
     """The root ``serve_mode``'s engine and schedule on JAX's ``SlotEngine``
-    (float32 cache): ``warm`` requests first, the scheduler counts reset as
-    the root resets them, then all ``n_req`` → (tokens a request, stats)."""
+    (float32 cache): ``warm`` requests first, then every count reset and the
+    speculative chunks restored with an empty guard window, as the port's
+    mode resets its engine, then all ``n_req`` → (tokens a request, stats)."""
     from vggt_qwen3_tpu.inference import slots as jslots
 
     cfg = dataclasses.replace(jconfig.QWEN3_TINY, dtype="float32")
@@ -294,9 +295,9 @@ def _jax_serve(jtext, n_req, slots, P, N, *, struct, spec, guard, warm):
 
     if warm:
         run(warm)
-        eng.stats.requests = eng.stats.chunks = eng.stats.tokens = 0
-        eng.stats.admitted_mid_decode = eng.stats.admit_dispatches = 0
-        eng.stats.admission_log.clear()
+        eng.stats = jslots.SlotStats()
+        eng.speculative = spec
+        eng._spec_gain_window.clear()
     return run(n_req), eng.stats
 
 

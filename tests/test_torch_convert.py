@@ -14,7 +14,7 @@
 - ``python -m vggt_qwen3_tpu_torch.tools.convert_reference_ckpt`` on a
   synthetic reference checkpoint (every component's keys, prefixed as the
   reference names its modules): its leaves equal the repository's JAX tool's,
-  and ``qa.load_model`` restores the ``step_<n>/params.pt`` it writes.
+  and ``qa.load_model`` restores the ``step_<n>`` checkpoint it writes.
 
 Bit for bit: float32 leaves equal exactly, bf16 leaves as 16-bit patterns.
 """
@@ -205,7 +205,7 @@ def test_convert_reference_ckpt_matches_jax_tool_and_restores(tmp_path):
     prefixed ``text_model.`` / ``projector.`` / ``geom_head.`` /
     ``vision_model.aggregator.``; ``module.`` on some keys) in one file:
     the port's tool gives the JAX tool's leaves, its CLI writes
-    ``step_3/params.pt`` and ``qa.load_model`` restores it."""
+    the ``step_3`` checkpoint and ``qa.load_model`` restores it."""
     stage_yaml = tmp_path / "stage.yaml"
     stage_yaml.write_text((REPO / "configs" / "toy.yaml").read_text().replace(
         "projector: null",
@@ -233,7 +233,7 @@ def test_convert_reference_ckpt_matches_jax_tool_and_restores(tmp_path):
 
     ptool.main(["--src", str(src), "--dest", str(tmp_path / "out"), "--config", str(stage_yaml), "--tiny",
                 "--step", "3", "--device", "cpu"])
-    assert (tmp_path / "out" / "step_3" / "params.pt").exists()
+    assert (tmp_path / "out" / "step_3" / ".metadata").exists()
     restored = pqa.load_model(pstage, str(tmp_path / "out"), device="cpu")
     assert_bits_equal(restored, jtool.convert(src, jstage, "bfloat16"))
     # the restored tree serves: the tiny VLM encodes two views

@@ -24,6 +24,15 @@ numpy-seeded inputs. Tolerances:
   size), as ``tests/test_torch_train_slice.py`` holds them; the state saved
   and restored on ``fsdp4·tp2`` bit for bit, one more micro step on either
   mesh within rtol 2e-5;
+- the sharded train state's life cycle (``init_train_state(mesh=...)``,
+  ``checkpoint.save`` / ``restore``): the init on ``dp2·tp2·pp2`` and
+  ``fsdp4·tp2``, with and without LoRA, bit for bit one process's unsharded
+  init from the same seed; each rank's checkpoint file holding only chunks
+  that rank holds, every leaf named once in the metadata and every element
+  stored once; the checkpoint read whole in one process (``restore``
+  without a process group, ``qa.load_model``) bit for bit; and a rank's
+  peak of live tensor bytes during the init, the save and the restore at
+  most its share of the state plus the largest leaf, plus 64 KiB;
 - the 24-view ring (``tests/test_ring_e2e.py``'s model, the tower unfrozen):
   loss rtol 2e-5, gradients rtol 5e-4 / atol 1e-5 of JAX's ring over
   ``fsdp4·tp2`` (rows on every rank); the trainer step with
@@ -75,8 +84,11 @@ from vggt_qwen3_tpu_torch.data.tokenizer import IMAGE_TOKEN, load_tokenizer
 from vggt_qwen3_tpu_torch.inference import engine as pengine
 from vggt_qwen3_tpu_torch.parallel import sharding as psharding
 from vggt_qwen3_tpu_torch.parallel.mesh import build_mesh as pbuild_mesh
+from vggt_qwen3_tpu_torch.inference import qa as pqa
+from vggt_qwen3_tpu_torch.train import checkpoint as pckpt
 from vggt_qwen3_tpu_torch.train import sft, trainer as ptrainer
 from vggt_qwen3_tpu_torch.utils.from_jax import params_from_jax
+from tests.torch_parallel_ranks import INIT_MESHES, INIT_SEED, flat
 
 REPO = Path(__file__).resolve().parents[1]
 RANKS = 8
@@ -532,6 +544,73 @@ def test_a_checkpoint_restores_on_another_mesh_shape(ranks):
         assert got["restore_exact"] and got["global_batch"]
         assert got["restored_placement"] == "(Replicate(), Shard(dim=1), Shard(dim=2), Replicate())"
         np.testing.assert_allclose(got["next_loss"][1], got["next_loss"][0], rtol=2e-5)
+
+
+LIVE_BYTES_SLACK = 64 << 10  # DCP's and the collectives' small tensors
+
+
+@pytest.mark.parametrize("mesh", list(INIT_MESHES))
+@pytest.mark.parametrize("lora", [False, True])
+def test_the_sharded_init_equals_one_process_init(ranks, mesh, lora):
+    _, res = ranks
+    got = res[0]["train"]["init"][(mesh, lora)]
+    state, _ = ptrainer.init_train_state(torch.Generator().manual_seed(INIT_SEED), port(_train_stage(lora)),
+                                         dtype="float32")
+    want = flat({"params": state.params, "mu": state.opt_state["mu"], "nu": state.opt_state["nu"]})
+    have = flat(got["state"])
+    assert list(have) == list(want)
+    assert [n for n in want if not torch.equal(have[n], want[n])] == []
+    assert all(r["train"]["init"][(mesh, lora)]["local_zeros"] for r in res)  # the moments: local zeros
+    wq = "(Replicate(), Shard(dim=1), Shard(dim=2), %s)" % ("Shard(dim=0)" if mesh == "dp2_tp2_pp2" else "Replicate()")
+    assert got["placements"]["text/layers/wq"] == wq
+    assert ("text/layers/lora/wq/A" in got["placements"]) == lora
+
+
+def test_a_save_writes_each_ranks_own_chunks_once(ranks):
+    from torch.distributed.checkpoint import FileSystemReader
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    _, res = ranks
+    md = FileSystemReader(res[0]["train"]["ckpt_dir"]).read_metadata()
+    held = [r["train"]["held_chunks"] for r in res]
+    assert set(md.state_dict_metadata) == {name for name, _ in held[0]}  # every leaf named, once
+    for name, meta in md.state_dict_metadata.items():
+        if isinstance(meta, TensorStorageMetadata):  # the chunks tile the leaf: every element stored once
+            assert len({tuple(c.offsets) for c in meta.chunks}) == len(meta.chunks), name
+            assert sum(int(np.prod(c.sizes)) for c in meta.chunks) == int(np.prod(meta.size)), name
+    writers = set()
+    for index, info in md.storage_data.items():
+        rank = int(info.relative_path.split("_")[2])  # "__<rank>_0.distcp"
+        offsets = None if index.offset is None else tuple(index.offset)
+        assert (index.fqn, offsets) in held[rank], (index.fqn, offsets, rank)
+        writers.add(rank)
+    assert len(writers) > 1
+    assert len(md.storage_data) == sum(len(m.chunks) if isinstance(m, TensorStorageMetadata) else 1
+                                       for m in md.state_dict_metadata.values())
+
+
+def test_one_process_reads_the_sharded_checkpoint_whole(ranks):
+    _, res = ranks
+    path = Path(res[0]["train"]["ckpt_dir"])
+    want = res[0]["train"]["saved"]
+    assert not torch.distributed.is_initialized()
+    state = pckpt.restore(path, "cpu")
+    got = flat({"params": state.params, **{k: state.opt_state[k] for k in ("mu", "nu", "acc")}})
+    assert list(got) == list(want) and [n for n in want if not torch.equal(got[n], want[n])] == []
+    assert state.opt_state["gradient_step"] == 2
+    params = flat({"params": pqa.load_model(port(_train_stage(True)), str(path.parent), device="cpu")})
+    assert list(params) == [n for n in want if n.startswith("params/")]
+    assert all(torch.equal(params[n], want[n]) for n in params)
+
+
+@pytest.mark.parametrize("phase", ["init", "save", "restore"])
+def test_a_ranks_peak_live_bytes_stay_within_its_share_plus_the_largest_leaf(ranks, phase):
+    _, res = ranks
+    for r in res:
+        t = r["train"]
+        for case in (list(t["init"].values()) if phase == "init" else [t[f"{phase}_bytes"]]):
+            assert case["share"] < case["total"]  # the state is sharded: a rank holds less than all of it
+            assert case["share"] <= case["peak"] <= case["share"] + case["largest"] + LIVE_BYTES_SLACK, case
 
 
 def test_ring_loss_grads_and_trainer_step_match_jax(ranks):

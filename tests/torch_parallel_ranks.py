@@ -16,7 +16,11 @@ writes ``DIR/rank<RANK>.pt``:
   global batches' rows of this rank, with and without LoRA (loss,
   ``grad_norm``, the full params after); the last state saved, restored on
   ``fsdp4·tp2`` (each full tensor bit for bit) and stepped once more on both
-  meshes;
+  meshes; the sharded init (``init_train_state(mesh=...)``) on both meshes,
+  with and without LoRA (rank 0's gathered state); the chunks each rank
+  holds when it saves; and the peak of the live tensor bytes of the init,
+  the save and the restore (:class:`LiveBytes`) beside the rank's share of
+  the state and its largest leaf;
 - ``ring``: the 24-view loss and gradients with VGGT's ring over ``fsdp`` of
   ``fsdp4·tp2`` (every rank with both rows), the trainer step on
   ``fsdp2·tp4`` (a row on each fsdp rank) with ``ring_axis="fsdp"`` and
@@ -36,6 +40,10 @@ from pathlib import Path
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -58,13 +66,78 @@ def whole(tree):
     return full(tree).detach().clone() if isinstance(tree, torch.Tensor) else tree
 
 
-def flat(tree, prefix=""):
+def flat(tree, prefix="", sep="/"):
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out.update(flat(v, f"{prefix}{k}/"))
+            out.update(flat(v, f"{prefix}{k}{sep}", sep))
         else:
             out[prefix + k] = v
+    return out
+
+
+class LiveBytes(TorchDispatchMode):
+    """The peak of the bytes of live tensors made under it: every storage an
+    op's output brings (a DTensor's local tensor's) counts from when it is
+    first seen until it is freed; the storages of ``existing`` (tensors that
+    were there before) never count, nor do uint8 tensors: the pickled
+    objects of the collectives (a checkpoint's plans and metadata, ~1 KB a
+    leaf and rank; no leaf of a train state is uint8)."""
+
+    def __init__(self, existing=()):
+        super().__init__()
+        self.skip = {StorageWeakRef(self._plain(t).untyped_storage()).cdata for t in existing}
+        self.live, self.peak = {}, 0
+
+    @staticmethod
+    def _plain(t):
+        return t._local_tensor if isinstance(t, DTensor) else t
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            t = self._plain(t)
+            if type(t) is not torch.Tensor or t.device.type == "meta" or t.dtype == torch.uint8:
+                continue
+            ref = StorageWeakRef(t.untyped_storage())
+            if ref.cdata not in self.skip and (ref.cdata not in self.live or self.live[ref.cdata][0].expired()):
+                self.live[ref.cdata] = (ref, t.untyped_storage().nbytes())
+        self.live = {k: v for k, v in self.live.items() if not v[0].expired()}
+        self.peak = max(self.peak, sum(n for _, n in self.live.values()))
+        return out
+
+
+def tensors(tree):
+    """Every tensor leaf of a nested dict (or a train state's trees)."""
+    if isinstance(tree, trainer.TrainState):
+        return tensors(tree.params) + tensors(tree.opt_state)
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def footprint(state, peak: int, before: int = 0):
+    """A rank's bytes: its share of ``state`` (the local shards, and the
+    leaves it holds whole), the largest leaf whole, and the peak of the live
+    bytes (those of tensors that were there before, ``before``, plus the
+    peak of those made since)."""
+    local = [LiveBytes._plain(t) for t in tensors(state)]
+    whole_bytes = [t.numel() * t.element_size() for t in tensors(state)]
+    return dict(share=sum(t.untyped_storage().nbytes() for t in local), peak=before + peak,
+                largest=max(whole_bytes), total=sum(whole_bytes))
+
+
+def held_chunks(state):
+    """(DCP's name, offsets) of every chunk this rank holds of a saved train
+    state: its own shard of each DTensor, every plain tensor whole, and the
+    other values (offsets None). DCP names a leaf by its keys joined with
+    "." (an optimizer leaf's key is its parameter's path, slashes and all)."""
+    out = {("leaves", None)}
+    for name, x in flat({"params": state.params, "opt_state": state.opt_state, "step": state.step}, sep=".").items():
+        if isinstance(x, DTensor):
+            out |= {(name, tuple(c.offsets)) for c in x.__create_chunk_list__()}
+        else:
+            out.add((name, (0,) * x.ndim if isinstance(x, torch.Tensor) else None))
     return out
 
 
@@ -143,11 +216,18 @@ def train_checks(inp, out_dir):
     saved = lambda st: flat(whole({"params": st.params, "mu": st.opt_state["mu"], "nu": st.opt_state["nu"],  # noqa: E731
                                    "acc": st.opt_state["acc"]}))
     before = saved(state)
-    ckpt.save(state, path)
+    with LiveBytes(existing=tensors(state)) as live:
+        ckpt.save(state, path)
+    res["save_bytes"] = footprint(state, live.peak, before=footprint(state, 0)["share"])
+    res["held_chunks"] = held_chunks(state)
     other = build_mesh(MeshConfig(fsdp=4, tp=2))
-    restored = ckpt.restore(path, "cpu", mesh=other)
+    with LiveBytes() as live:
+        restored = ckpt.restore(path, "cpu", mesh=other)
+    res["restore_bytes"] = footprint(restored, live.peak)
     after = saved(restored)
     res["restore_exact"] = before.keys() == after.keys() and all(torch.equal(before[n], after[n]) for n in before)
+    res["saved"] = before if dist.get_rank() == 0 else None
+    res["ckpt_dir"] = str(path)
     res["restored_placement"] = str(restored.params["text"]["layers"]["wq"].placements)
     stage = inp["stages"][True]
     b = inp["batches"][0]
@@ -156,6 +236,33 @@ def train_checks(inp, out_dir):
                                     state_sharding=trainer.state_shardings(restored, other))
     _, m2 = step2(restored, shard_batch(b, other), None)
     res["next_loss"] = (m1["loss"].item(), m2["loss"].item())
+    res["init"] = init_checks(inp)
+    return res
+
+
+INIT_SEED = 5
+INIT_MESHES = {"dp2_tp2_pp2": MeshConfig(dp=2, tp=2, pp=2), "fsdp4_tp2": MeshConfig(fsdp=4, tp=2)}
+
+
+def init_checks(inp):
+    """``init_train_state(mesh=...)`` from ``INIT_SEED`` on each mesh, with
+    and without LoRA: rank 0's gathered state, whether every moment is a
+    zero of its parameter's local shape, and the bytes (:func:`footprint`)."""
+    res = {}
+    for mesh_name, shape in INIT_MESHES.items():
+        mesh = build_mesh(shape)
+        for lora in (False, True):
+            with LiveBytes() as live:
+                state, _ = trainer.init_train_state(torch.Generator().manual_seed(INIT_SEED), inp["stages"][lora],
+                                                    dtype="float32", mesh=mesh)
+            params = dict(trainer.named_leaves(state.params))
+            full_state = {"params": whole(state.params), "mu": whole(state.opt_state["mu"]),
+                          "nu": whole(state.opt_state["nu"])}
+            res[(mesh_name, lora)] = dict(
+                footprint(state, live.peak), state=full_state if dist.get_rank() == 0 else None,
+                placements={n: str(p.placements) for n, p in params.items()},
+                local_zeros=all(m.to_local().shape == params[n].to_local().shape and not m.to_local().any()
+                                for key in ("mu", "nu") for n, m in state.opt_state[key].items()))
     return res
 
 

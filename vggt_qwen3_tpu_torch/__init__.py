@@ -18,11 +18,11 @@ and function names so each counterpart is easy to find:
   and the HTTP server (``python -m vggt_qwen3_tpu_torch.inference.qa`` /
   ``.arkit`` / ``.server``).
 - ``tools/``: ``convert_reference_ckpt`` (a reference or HF checkpoint →
-  ``step_<n>/params.pt``); the per-component converters live beside their
+  a ``step_<n>`` checkpoint of its parameters); the per-component converters live beside their
   models (``models/convert_qwen3.py``, ``convert_torch_state_dict``).
 - ``train/``  : the SFT trainer (optax's AdamW, clip and accumulation in
   plain torch; block-wise 8-bit AdamW in ``train/adam8bit.py``), losses,
-  ``torch.save`` checkpoints and the CLI (``python -m
+  sharded ``torch.distributed.checkpoint`` checkpoints and the CLI (``python -m
   vggt_qwen3_tpu_torch.train.sft``); ``data/`` holds the collator and loader,
   the lazy JSONL index and the thread-pooled image decoder (host C++ in
   ``csrc/*.cpp``, built with the host compiler at first use).

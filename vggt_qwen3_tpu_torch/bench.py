@@ -469,8 +469,10 @@ def train_phases(s: TrainSetup) -> dict:
     return out
 
 
-def train_measure(s: TrainSetup, phases: bool = False) -> dict:
-    """The train mode's timings and metrics (module note)."""
+def train_measure(s: TrainSetup, phases: bool = False, micro_reps: int = MICRO_REPS,
+                  cycle_reps: int = CYCLE_REPS) -> dict:
+    """The train mode's timings and metrics (module note): the least of
+    ``micro_reps`` timed micro steps and of ``cycle_reps`` timed cycles."""
     dev = s.batch["input_ids"].device
     cuda = dev.type == "cuda"
     if cuda:
@@ -478,13 +480,13 @@ def train_measure(s: TrainSetup, phases: bool = False) -> dict:
     warm_s, (loss0, grads) = _timed(lambda: train_micro(s, 0), dev)
     del grads
     micro_walls, losses = [], [float(loss0)]
-    for i in range(MICRO_REPS):
+    for i in range(micro_reps):
         secs, (loss, grads) = _timed(lambda: train_micro(s, 1 + i), dev)
         del grads
         micro_walls.append(secs)
         losses.append(float(loss))
     cycle_walls = []
-    for i in range(1 + CYCLE_REPS):  # a warm-up cycle (the optimizer state's first touch), then the timed ones
+    for i in range(1 + cycle_reps):  # a warm-up cycle (the optimizer state's first touch), then the timed ones
         secs, loss = _timed(lambda: train_cycle(s, 100 * (i + 1)), dev)
         losses.append(float(loss))
         if i:
@@ -853,10 +855,12 @@ def serve_mode(args, params: Optional[dict] = None) -> dict:
     """The root ``serve_mode``: the slot engine (text-only Qwen3-4B, W8, int8
     KV, decode chunk 4) serving ``--serve_reqs`` requests of prompt 32 with
     budgets cycled over [8, 32] on ``--slots`` slots, all submitted at once;
-    after a closed warm-up pass of 4·slots requests (its scheduler counts
-    reset as the root resets them). Requests/s = requests / the wall from the
-    first submit to the last result (one timed pass, after the warm-up pass;
-    ``warmup_admit_dispatches`` counts the warm-up's admission prefills)."""
+    after a closed warm-up pass of 4·slots requests. Requests/s = requests /
+    the wall from the first submit to the last result (one timed pass, after
+    the warm-up pass). Every reported count covers the timed pass alone: the
+    engine's stats are reset after the warm-up and its speculative chunks
+    restored with an empty guard window (the root resets only some counts);
+    ``warmup_admit_dispatches`` counts the warm-up's admission prefills."""
     n_req = _serve_shape(args)[0]
     guard = 0.0 if args.spec_guard == 0 else 1.35
     eng, prompts, budgets, shape = _slot_engine(args, params, n_req, track_metrics=False, guard=guard)
@@ -866,9 +870,8 @@ def serve_mode(args, params: Optional[dict] = None) -> dict:
         f.result(timeout=600)
     st = eng.stats
     warm_dispatches = st.admit_dispatches
-    st.requests = st.chunks = st.tokens = st.admitted_mid_decode = st.admit_dispatches = 0
-    st.admission_wait_s = 0.0
-    st.admission_log.clear()
+    st.reset()
+    eng.reset_speculation()
     t = time.perf_counter()
     futs = [_submit(eng, prompts, budgets, i) for i in range(n_req)]
     eng.run_until_idle()
@@ -891,8 +894,11 @@ def serve_sla_mode(args, params: Optional[dict] = None) -> dict:
     × the capacity, ``--sla_reqs`` requests each, served by the engine's own
     thread (``start``/``stop``): TTFT, admission wait and inter-token latency
     at p50/p99 from ``req_meta``. The metric is p99 TTFT at 1.0× (the last
-    load's if 1.0 is not among them). ``admit_dispatches`` counts the
-    admission prefills of every pass."""
+    load's if 1.0 is not among them). The engine's stats are reset after the
+    closed passes and its speculative chunks restored with an empty guard
+    window, so the counts cover the loads alone: ``admit_dispatches`` counts
+    the loads' admission prefills, ``closed_admit_dispatches`` the closed
+    passes'."""
     n_req = args.sla_reqs or (8 if args.tiny else 96)
     eng, prompts, budgets, shape = _slot_engine(args, params, n_req, track_metrics=True,
                                                 guard=0.0 if args.serve_spec else 1.35)
@@ -910,6 +916,9 @@ def serve_sla_mode(args, params: Optional[dict] = None) -> dict:
 
     cold = closed_pass()
     cap = closed / closed_pass()
+    closed_dispatches = eng.stats.admit_dispatches
+    eng.stats.reset()
+    eng.reset_speculation()
     arrivals = np.random.default_rng(7)
     loads, p99_at_1 = [], None
     eng.start()
@@ -944,8 +953,9 @@ def serve_sla_mode(args, params: Optional[dict] = None) -> dict:
         p99_at_1 = loads[-1]["ttft_p99_ms"]
     return dict(mode="serve_sla", metric="serve_sla_p99_ttft_ms", value=p99_at_1, unit="ms", label=_label(shape),
                 **shape, capacity_req_s=cap, cold_pass_s=cold, loads=loads,
-                admit_dispatches=eng.stats.admit_dispatches,
-                closed_tokens=[tokens[i] for i in range(closed)], **_card(_device_of(eng.params)))
+                admit_dispatches=eng.stats.admit_dispatches, closed_admit_dispatches=closed_dispatches,
+                requests_served=eng.stats.requests, closed_tokens=[tokens[i] for i in range(closed)],
+                **_card(_device_of(eng.params)))
 
 
 def ring_inputs(args, dev):

@@ -39,15 +39,16 @@ from .postprocess import postprocess_qa_answer
 
 def load_model(stage: StageConfig, checkpoint_dir: Optional[str] = None, rng_seed: int = 0, device="cuda"):
     """The model's params on ``device``: restored from a port checkpoint
-    (a ``step_<n>`` directory written by ``train.sft``, or a directory
-    holding them — the newest wins; LoRA adapters come with it), else a
-    random init from a seeded generator."""
+    (a ``step_<n>`` directory written by ``train.sft`` on any mesh or by
+    ``tools/convert_reference_ckpt``, or a directory holding them — the
+    newest wins; LoRA adapters come with it), read whole by this process,
+    else a random init from a seeded generator."""
     dev = resolve_device(device)
     if checkpoint_dir:
         path = Path(checkpoint_dir)
-        step_dir = path if (path / "params.pt").exists() else ckpt.latest_step_dir(path)
+        step_dir = path if ckpt.is_step_dir(path) else ckpt.latest_step_dir(path)
         if step_dir is None:
-            raise FileNotFoundError(f"no checkpoint (step_<n>/params.pt) under {path}")
+            raise FileNotFoundError(f"no checkpoint (step_<n>/{ckpt.METADATA}) under {path}")
         print(f"restored checkpoint {step_dir}", flush=True)
         return ckpt.load_params(step_dir, dev)
     gen = torch.Generator(device=dev).manual_seed(rng_seed)

@@ -44,7 +44,7 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import Future
-from dataclasses import dataclass, field
+from dataclasses import MISSING, dataclass, field, fields
 from queue import Empty, Queue
 from typing import Dict, List, Optional, Tuple
 
@@ -398,6 +398,12 @@ class SlotStats:
     def kv_utilization(self) -> float:
         return self.kv_used_token_chunks / max(self.kv_reserved_token_chunks, 1)
 
+    def reset(self) -> None:
+        """Every field back to its default, so that a pass after a warm-up
+        counts itself alone."""
+        for f in fields(self):
+            setattr(self, f.name, f.default_factory() if f.default_factory is not MISSING else f.default)
+
 
 class SlotEngine:
     """Host scheduler over the admit / decode-chunk functions.
@@ -429,7 +435,7 @@ class SlotEngine:
         self.num_slots = num_slots
         self.max_len = max_len
         self.decode_chunk = decode_chunk
-        self.speculative = speculative
+        self.speculative = self._speculative = speculative
         self.draft_k = draft_k
         self.ngram = ngram
         self.spec_chunk = spec_chunk  # verify blocks a chunk
@@ -708,6 +714,15 @@ class SlotEngine:
             print(f"slots: speculative decoding turned off at chunk {self._chunk_idx} (rolling gain "
                   f"{sum(w) / len(w):.2f} tokens a block < {self.spec_min_gain}); plain chunks from here",
                   flush=True)
+
+    def reset_speculation(self) -> None:
+        """Speculative chunks as the engine was built with, and the guard's
+        window empty: a guard that tripped in a warm-up pass does not carry
+        into the next pass. Only between passes (the engine idle)."""
+        if self._any_active() or self._pending_snap is not None or not self.queue.empty():
+            raise RuntimeError("reset_speculation needs an idle engine (no request queued, admitted or undelivered)")
+        self.speculative = self._speculative
+        self._spec_gain_window.clear()
 
     def run_until_idle(self) -> None:
         while self.step_once():

@@ -1,5 +1,5 @@
-"""Helpers shared by the port's models: dtype names, seeded normal init,
-per-layer views of stacked weights, recompute for training, and the leaf
+"""Helpers shared by the port's models: dtype names, seeded normal init and
+the hook every initialised leaf passes through, per-layer views of stacked weights, recompute for training, and the leaf
 conversion of the checkpoint converters.
 
 Parameters may be DTensors laid out by the sharding registry
@@ -10,7 +10,9 @@ whole at the function's entry. Plain tensors pass through untouched."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+import contextlib
+from contextvars import ContextVar
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -28,10 +30,33 @@ def torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else _DTYPES[name]
 
 
+_LEAF_HOOK: ContextVar[Optional[Callable[[torch.Tensor], torch.Tensor]]] = ContextVar("leaf_hook", default=None)
+
+
+@contextlib.contextmanager
+def leaf_hook(fn: Callable[[torch.Tensor], torch.Tensor]) -> Iterator[None]:
+    """Within: every leaf an ``init_params`` (and ``qwen3.add_lora``) makes
+    goes through ``fn`` as soon as it is made, in the order it is made, and
+    the tree holds what ``fn`` returns. A sharded init keeps each leaf's
+    shard this way and frees the whole before the next leaf is drawn."""
+    token = _LEAF_HOOK.set(fn)
+    try:
+        yield
+    finally:
+        _LEAF_HOOK.reset(token)
+
+
+def made(x: torch.Tensor) -> torch.Tensor:
+    """A leaf an init has just made, through the :func:`leaf_hook` if one is set."""
+    fn = _LEAF_HOOK.get()
+    return x if fn is None else fn(x)
+
+
 def normal(gen: torch.Generator, shape, std: float, dt: torch.dtype) -> torch.Tensor:
-    """N(0, std²) drawn in float32 from ``gen`` on its device, cast to ``dt``."""
+    """N(0, std²) drawn in float32 from ``gen`` on its device, cast to ``dt``
+    (a new leaf: :func:`made`)."""
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    return x.normal_(0.0, std, generator=gen).to(dt)
+    return made(x.normal_(0.0, std, generator=gen).to(dt))
 
 
 def layer_views(lp: Params, L: int, stage=None) -> List[Dict[str, object]]:

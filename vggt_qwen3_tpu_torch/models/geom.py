@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..parallel.sharding import full_tree
-from .common import as_f32, leaf, normal, torch_dtype
+from .common import as_f32, leaf, made, normal, torch_dtype
 
 Params = Dict[str, torch.Tensor]
 
@@ -29,9 +29,9 @@ def init_params(gen: torch.Generator, hidden: int, dtype: str = "float32") -> Pa
     dt = torch_dtype(dtype)
     return {
         "w1": normal(gen, (FEATURE_DIM, hidden), 0.02, dt),
-        "b1": torch.zeros((hidden,), dtype=dt, device=gen.device),
+        "b1": made(torch.zeros((hidden,), dtype=dt, device=gen.device)),
         "w2": normal(gen, (hidden, hidden), 0.02, dt),
-        "b2": torch.zeros((hidden,), dtype=dt, device=gen.device),
+        "b2": made(torch.zeros((hidden,), dtype=dt, device=gen.device)),
     }
 
 

@@ -38,7 +38,7 @@ from ..config import PerceiverConfig
 from ..ops.attention import mha
 from ..ops.norms import layer_norm
 from ..parallel.sharding import full_tree
-from .common import as_f32, layer_views, leaf, torch_dtype
+from .common import as_f32, layer_views, leaf, made, torch_dtype
 
 Params = Dict[str, object]
 
@@ -54,17 +54,17 @@ def init_params(
     def xavier(shape):
         limit = (6.0 / (shape[-2] + shape[-1])) ** 0.5
         x = torch.empty(shape, dtype=torch.float32, device=dev)
-        return x.uniform_(-limit, limit, generator=gen).to(dt)
+        return made(x.uniform_(-limit, limit, generator=gen).to(dt))
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+        return made(torch.zeros(shape, dtype=dt, device=dev))
 
     def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=dev)
+        return made(torch.ones(shape, dtype=dt, device=dev))
 
     latents = torch.empty((N, D), dtype=torch.float32, device=dev).normal_(0.0, 0.02, generator=gen)
     return {
-        "latents": latents.to(dt),
+        "latents": made(latents.to(dt)),
         "in_proj_w": xavier((in_dim, D)),
         "in_proj_b": zeros(D),
         "layers": {

@@ -87,7 +87,7 @@ from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..parallel.pipeline import pipeline_decoder
 from ..parallel.sharding import full, full_tree, is_sharded
-from .common import layer_views, normal, remat, torch_dtype
+from .common import layer_views, made, normal, remat, torch_dtype
 
 Params = Dict[str, object]
 
@@ -100,7 +100,7 @@ def init_params(gen: torch.Generator, cfg: Qwen3Config, dtype: Optional[str] = N
     D, NH, NKV = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
 
     def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=dev)
+        return made(torch.ones(shape, dtype=dt, device=dev))
 
     params: Params = {
         "embed": normal(gen, (cfg.vocab_size, H), 0.02, dt),
@@ -185,8 +185,8 @@ def add_lora(params: Params, cfg: Qwen3Config, lora_cfg, gen: torch.Generator) -
         dt = (w["scale"] if isinstance(w, dict) else w).dtype
         lora[key] = {
             "A": normal(gen, (L, in_dim, r), 0.02, dt),
-            "B": torch.zeros((L, r, out_dim), dtype=dt, device=gen.device),
-            "s": torch.full((L, 1), lora_cfg.scale, dtype=dt, device=gen.device),
+            "B": made(torch.zeros((L, r, out_dim), dtype=dt, device=gen.device)),
+            "s": made(torch.full((L, 1), lora_cfg.scale, dtype=dt, device=gen.device)),
         }
     out = dict(params)
     out["layers"] = dict(params["layers"], lora=lora)

@@ -52,7 +52,7 @@ from ..ops.norms import layer_norm
 from ..ops.ring_attention import ring_attention_sharded
 from ..ops.rope2d import apply_rope2d, rope2d_cos_sin
 from ..parallel.sharding import full_tree
-from .common import as_f32, layer_views, leaf, normal, remat, torch_dtype
+from .common import as_f32, layer_views, leaf, made, normal, remat, torch_dtype
 
 Params = Dict[str, object]
 
@@ -65,7 +65,7 @@ def _init_block_stack(gen, L, E, mlp_ratio, ls_init, dt):
     dev = gen.device
 
     def full(shape, val):
-        return torch.full(shape, val, dtype=dt, device=dev)
+        return made(torch.full(shape, val, dtype=dt, device=dev))
 
     return {
         "ln1_w": full((L, E), 1.0),
@@ -93,13 +93,13 @@ def init_params(gen: torch.Generator, cfg: VGGTConfig, dtype: Optional[str] = No
     return {
         "patch": {
             "proj_w": normal(gen, (P, P, 3, E), 0.02, dt),
-            "proj_b": torch.zeros((E,), dtype=dt, device=gen.device),
+            "proj_b": made(torch.zeros((E,), dtype=dt, device=gen.device)),
             "cls": normal(gen, (E,), 0.02, dt),
             "reg": normal(gen, (R, E), 0.02, dt),
             "pos": normal(gen, (1 + n_side * n_side, E), 0.02, dt),
             "blocks": _init_block_stack(gen, cfg.patch_depth, E, cfg.mlp_ratio, cfg.patch_ls_init, dt),
-            "norm_w": torch.ones((E,), dtype=dt, device=gen.device),
-            "norm_b": torch.zeros((E,), dtype=dt, device=gen.device),
+            "norm_w": made(torch.ones((E,), dtype=dt, device=gen.device)),
+            "norm_b": made(torch.zeros((E,), dtype=dt, device=gen.device)),
         },
         "camera_token": normal(gen, (2, 1, E), 0.02, dt),
         "register_token": normal(gen, (2, R, E), 0.02, dt),

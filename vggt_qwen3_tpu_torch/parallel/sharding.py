@@ -147,6 +147,20 @@ def param_shardings(params: Any, mesh: DeviceMesh) -> Any:
     return _map_with_path(lambda path, x: NamedSharding(mesh, spec_with_pp(path, x.ndim, pp)), params)
 
 
+def local_shape(shape: Sequence[int], sharding: NamedSharding, name: str = "") -> Tuple[int, ...]:
+    """The shape of one rank's shard of a tensor of ``shape`` laid out by
+    ``sharding``; a sharded dim must divide by its axis's extent."""
+    out = list(shape)
+    mesh = sharding.mesh
+    for i, pl in enumerate(sharding.placements):
+        if isinstance(pl, Shard):
+            if out[pl.dim] % mesh.size(i):
+                raise ValueError(f"{name or 'leaf'} {tuple(shape)}: dim {pl.dim} does not divide by "
+                                 f"{mesh.mesh_dim_names[i]}={mesh.size(i)}")
+            out[pl.dim] //= mesh.size(i)
+    return tuple(out)
+
+
 def place(x: torch.Tensor, sharding: NamedSharding, name: str = "") -> torch.Tensor:
     """``x`` as a DTensor laid out by ``sharding`` (a DTensor with that layout
     stays as it is). Every rank passes the same full tensor; rank 0's is
@@ -157,15 +171,32 @@ def place(x: torch.Tensor, sharding: NamedSharding, name: str = "") -> torch.Ten
     if isinstance(x, DTensor):
         x = x.full_tensor()
     mesh = sharding.mesh
-    for i, pl in enumerate(sharding.placements):
-        if isinstance(pl, Shard) and x.shape[pl.dim] % mesh.size(i):
-            raise ValueError(f"{name or 'leaf'} {tuple(x.shape)}: dim {pl.dim} does not divide by "
-                             f"{mesh.mesh_dim_names[i]}={mesh.size(i)}")
+    local_shape(x.shape, sharding, name)
     if mesh.size() == 1:  # one rank: the tensor itself is its shard (no copy, no collective)
         out = DTensor.from_local(x.detach(), mesh, sharding.placements, run_check=False)
     else:
         out = distribute_tensor(x.detach(), mesh, sharding.placements)
     return out.requires_grad_(x.requires_grad)
+
+
+def keep_shard(x: torch.Tensor, sharding: NamedSharding, name: str = "") -> torch.Tensor:
+    """This rank's part of ``x`` as a DTensor laid out by ``sharding``, with
+    no collective: every rank holds the same whole ``x`` (drawn from the
+    same seed), and the part is a copy, so ``x`` can be freed. A replicated
+    layout (and a mesh of one rank) keeps ``x`` itself."""
+    local_shape(x.shape, sharding, name)
+    part = _narrow(x, sharding.mesh, sharding.placements)
+    if part is not x:
+        part = part.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(part.detach(), sharding.mesh, sharding.placements, run_check=False)
+
+
+def empty_shard(shape: Sequence[int], dtype: torch.dtype, sharding: NamedSharding, device, name: str = ""
+                ) -> torch.Tensor:
+    """An uninitialised DTensor of global ``shape`` laid out by ``sharding``:
+    each rank allocates its own shard only."""
+    local = torch.empty(local_shape(shape, sharding, name), dtype=dtype, device=device)
+    return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False)
 
 
 def shard_params(params: Any, mesh: DeviceMesh) -> Any:
@@ -399,18 +430,24 @@ def unstack(x: torch.Tensor, stage: Optional[DeviceMesh] = None) -> List:
     return [LayerShard(v, mesh, pls) for v in local.unbind(0)]
 
 
+def _narrow(value: torch.Tensor, mesh: DeviceMesh, placements: Sequence,
+            dims: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """This rank's part (a view) of a full tensor laid out by ``placements``
+    on ``mesh``; ``dims``: cut only these tensor dims."""
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard) and mesh.size(i) > 1 and (dims is None or pl.dim in dims):
+            size = value.shape[pl.dim] // mesh.size(i)
+            value = value.narrow(pl.dim, mesh.get_local_rank(i) * size, size)
+    return value
+
+
 def local_part(full_value: torch.Tensor, like: torch.Tensor, dims: Optional[Sequence[int]] = None) -> torch.Tensor:
     """This rank's part of a full tensor laid out as the DTensor ``like``
     (``full_value`` itself for a plain ``like``); ``dims``: cut only these
     tensor dims."""
     if not isinstance(like, DTensor):
         return full_value
-    mesh = like.device_mesh
-    for i, pl in enumerate(like.placements):
-        if isinstance(pl, Shard) and mesh.size(i) > 1 and (dims is None or pl.dim in dims):
-            size = full_value.shape[pl.dim] // mesh.size(i)
-            full_value = full_value.narrow(pl.dim, mesh.get_local_rank(i) * size, size)
-    return full_value
+    return _narrow(full_value, like.device_mesh, like.placements, dims)
 
 
 def local(x):

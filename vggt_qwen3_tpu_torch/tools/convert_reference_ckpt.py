@@ -13,8 +13,9 @@ Accepts any of:
 Keys are routed by the reference's module names: ``text_model.*`` → Qwen3,
 ``projector.*`` → Perceiver, ``geom_head.*`` → geometry head,
 ``vision_model.*`` → VGGT (a bare key is taken as Qwen3's). A component the
-checkpoint lacks keeps a seeded random init. The result is written as
-``<dest>/step_<n>/params.pt``, which ``inference.qa.load_model`` restores, so
+checkpoint lacks keeps a seeded random init. The result is written as the
+checkpoint ``<dest>/step_<n>/`` (``train.checkpoint.save_params``: the
+parameters alone), which ``inference.qa.load_model`` restores, so
 the QA CLI and the server take it with ``--checkpoint_dir <dest>``:
 
     python -m vggt_qwen3_tpu_torch.tools.convert_reference_ckpt \\
@@ -26,14 +27,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import shutil
 from pathlib import Path
 from typing import Dict
 
 import torch
 
 from .. import resolve_device
+from ..train import checkpoint as ckpt
 
 
 def load_torch_state_dict(src: Path) -> Dict:
@@ -122,22 +122,15 @@ def convert(src: Path, stage, dtype: str, device="cuda", seed: int = 0) -> Dict:
 
 
 def save_params(params: Dict, dest: Path, step: int) -> Path:
-    """``<dest>/step_<step>/params.pt``, written into a ``.tmp`` directory
-    and renamed when complete (``train.checkpoint``'s layout)."""
+    """``<dest>/step_<step>/``, the parameter tree in ``train.checkpoint``'s
+    format (written into a ``.tmp`` directory and renamed when complete)."""
     path = Path(dest) / f"step_{step}"
-    tmp = path.with_name(path.name + ".tmp")
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir(parents=True)
-    torch.save(params, tmp / "params.pt")
-    if path.exists():
-        shutil.rmtree(path)
-    os.replace(tmp, path)
+    ckpt.save_params(params, path)
     return path
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="Reference checkpoint → the port's params (step_<n>/params.pt).")
+    ap = argparse.ArgumentParser(description="Reference checkpoint → the port's params (a step_<n> checkpoint).")
     ap.add_argument("--src", type=Path, required=True)
     ap.add_argument("--dest", type=Path, required=True)
     ap.add_argument("--config", default="configs/stage1_3d.yaml")
@@ -153,7 +146,7 @@ def main(argv=None) -> None:
                               vision_config=VGGT_TINY if args.tiny else None)
     params = convert(args.src, stage, args.dtype, device=args.device)
     path = save_params(params, args.dest, args.step)
-    print(f"saved {path / 'params.pt'}", flush=True)
+    print(f"saved {path}", flush=True)
 
 
 if __name__ == "__main__":

@@ -26,12 +26,15 @@ from ``torchrun``'s variables, which a bare ``torchrun`` launch also uses),
 else it is this process alone. The mesh is, in order of priority: the mesh
 flags, the YAML's ``mesh:`` block when it fits the world, all ranks on
 ``fsdp``. The train state is laid out by the registry
-(``trainer.state_shardings``); the global batch is ``batch_size_per_device
+(``trainer.state_shardings``): a fresh run makes it straight into its
+shards (``trainer.init_train_state(mesh=...)``), a resumed one reads each
+rank's shards into that layout (``checkpoint.restore(mesh=...)``, from a
+checkpoint of any mesh shape). The global batch is ``batch_size_per_device
 · dp · fsdp`` rows, of which each process reads its own block (the loader's
 ``shard_rank``/``shard_count``). ``--ring [AXIS]`` runs VGGT's global
 attention as ring attention over that mesh axis (``fsdp`` when bare). Only
-rank 0 logs, prints and writes checkpoints (full tensors, whatever the mesh:
-a run may resume on another mesh shape).
+rank 0 logs and prints; every rank writes its own shards of a checkpoint
+(``train/checkpoint.py``), which one process can read whole for inference.
 """
 
 from __future__ import annotations
@@ -205,15 +208,14 @@ def train(args) -> None:
 
     resume_dir = found if args.resume else None
     if resume_dir is not None:
-        state = ckpt.restore(resume_dir, dev)
+        state = ckpt.restore(resume_dir, dev, mesh=mesh)
         tx = trainer.make_tx(stage, state.params)
         if is_main:
             print(f"resumed from {resume_dir} at step {state.step}", flush=True)
     else:
         state, tx = trainer.init_train_state(torch.Generator(device=dev).manual_seed(stage.train.seed), stage,
-                                             dtype=stage.model.dtype)
+                                             dtype=stage.model.dtype, mesh=mesh)
     shardings = trainer.state_shardings(state, mesh)
-    trainer.shard_state(state, shardings)
     loader = build_data(stage, tokenizer, data_root=args.data_root, start_batches=state.step,
                         shard_rank=axis_index(mesh, DATA_AXES), shard_count=stage.mesh.dp * stage.mesh.fsdp)
     logger = MetricLogger(out_dir) if is_main else None

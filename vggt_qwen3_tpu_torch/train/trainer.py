@@ -50,18 +50,20 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor
 
 from ..config import StageConfig, TrainConfig
 from ..models import qwen3, vlm
+from ..models.common import leaf_hook
 from ..parallel.mesh import DATA_AXES, axis_group, mesh_shape
-from ..parallel.sharding import (NamedSharding, gather_local, local, local_part, param_specs, path_keys, place,
-                                 sharded_dims, spec_with_pp)
+from ..parallel.sharding import (NamedSharding, empty_shard, gather_local, keep_shard, local, local_part,
+                                 param_specs, path_keys, place, sharded_dims, spec_with_pp)
 from . import adam8bit
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -289,15 +291,97 @@ def make_tx(stage: StageConfig, params) -> Optimizer:
                      num_text_layers=stage.model.text.num_layers)
 
 
-def init_train_state(gen: torch.Generator, stage: StageConfig, *, dtype: Optional[str] = None
+def init_train_state(gen: torch.Generator, stage: StageConfig, *, dtype: Optional[str] = None, mesh=None
                      ) -> Tuple[TrainState, Optimizer]:
     """Random params on ``gen.device`` (with LoRA adapters when the stage
-    enables them), the optimizer and its zero state, step 0."""
-    params = vlm.init_params(gen, stage.model, dtype=dtype)
-    if stage.lora.enable:
-        params["text"] = qwen3.add_lora(params["text"], stage.model.text, stage.lora, gen)
-    tx = make_tx(stage, params)
-    return TrainState(params=params, opt_state=tx.init(params), step=0), tx
+    enables them), the optimizer and its zero state, step 0.
+
+    With ``mesh`` the state is made straight into its shardings
+    (:func:`state_shardings` on ``mesh``; JAX's ``jit(init_fn,
+    out_shardings=...)``): every rank draws each leaf in turn from ``gen``
+    (the same seed on every rank), keeps its own shard and frees the whole
+    before the next leaf is drawn, so no rank holds more than one whole leaf
+    beside its shards; the moments are zeros of the local shards' shapes
+    (the 8-bit block moments replicate, as the registry lays them out). The
+    values are those of the unsharded init with the same generator."""
+    if mesh is None:
+        params = vlm.init_params(gen, stage.model, dtype=dtype)
+        if stage.lora.enable:
+            params["text"] = qwen3.add_lora(params["text"], stage.model.text, stage.lora, gen)
+        tx = make_tx(stage, params)
+        return TrainState(params=params, opt_state=tx.init(params), step=0), tx
+    abstract, order = abstract_train_state(stage, dtype=dtype)
+    shardings = dict(named_leaves(state_shardings(abstract, mesh).params))
+    names = iter(order)
+
+    def keep(x):
+        name = next(names)
+        return keep_shard(x, shardings[name], name)
+
+    with leaf_hook(keep):
+        return init_train_state(gen, stage, dtype=dtype)
+
+
+def abstract_train_state(stage: StageConfig, *, dtype: Optional[str] = None) -> Tuple[TrainState, List[str]]:
+    """The train state's structure without values, as ``jax.eval_shape`` of
+    JAX's init gives it: :func:`init_train_state` traced under
+    ``FakeTensorMode`` (no value drawn or stored; the generator does not
+    move) → (the state with a meta tensor of each leaf's shape and dtype,
+    the parameters' names in the order the init makes them).
+    :func:`state_shardings` lays it out; :func:`allocate_state` makes its
+    storage."""
+    made = []
+    with FakeTensorMode(), leaf_hook(lambda x: made.append(x) or x):
+        state, _ = init_train_state(torch.Generator(), stage, dtype=dtype)
+    names = {id(p): n for n, p in named_leaves(state.params)}
+    order = [names[id(x)] for x in made]
+    if sorted(order) != sorted(names.values()):  # a leaf made outside the hook, or passed twice
+        raise RuntimeError("init_params made leaves that did not pass its leaf hook once each")
+    return _map_tensors(state, lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta")), order
+
+
+def allocate_state(abstract: TrainState, device, mesh=None) -> TrainState:
+    """Uninitialised storage for an abstract state (meta or any tensors give
+    the shapes and dtypes) on ``device``: whole tensors without ``mesh``;
+    with it, each rank's own shard of every leaf the registry lays out
+    (:func:`state_shardings`) and the replicated 8-bit moments whole, as
+    :func:`shard_state` lays a state out. Counterpart of JAX's
+    ``abstract_like`` with shardings, the target a restore reads into."""
+    if mesh is None:
+        return _map_tensors(abstract, lambda x: torch.empty(x.shape, dtype=x.dtype, device=device))
+    sh = state_shardings(abstract, mesh)
+
+    def alloc(tree, shardings, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = alloc(v, shardings[k], f"{prefix}{k}/")
+            elif isinstance(v, torch.Tensor):
+                out[k] = empty_shard(v.shape, v.dtype, shardings[k], device, prefix + k)
+            else:
+                out[k] = v
+        return out
+
+    whole = lambda x: torch.empty(x.shape, dtype=x.dtype, device=device)  # noqa: E731
+    opt = {}
+    for key, v in abstract.opt_state.items():
+        if key in ("mu", "nu", "acc"):  # the 8-bit moments' dicts replicate: whole on every rank
+            opt[key] = {n: (_map_tensors(m, whole) if isinstance(m, dict) else
+                            empty_shard(m.shape, m.dtype, sh.opt_state[key][n], device, f"{key}/{n}"))
+                        for n, m in v.items()}
+        else:
+            opt[key] = v
+    return TrainState(params=alloc(abstract.params, sh.params), opt_state=opt, step=abstract.step)
+
+
+def _map_tensors(tree, fn):
+    """``tree`` (a nested dict, a :class:`TrainState` or a leaf) with every tensor leaf through ``fn``."""
+    if isinstance(tree, TrainState):
+        return TrainState(params=_map_tensors(tree.params, fn), opt_state=_map_tensors(tree.opt_state, fn),
+                          step=tree.step)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
